@@ -3,21 +3,34 @@
 
     python3 chip_smoke.py
 
-Drives the port's config-1 single-end path once, at full size, and fails
-(non-zero exit, no result line) on any error, when no CUDA device is
-present, or when the port cannot be imported. Phases:
+Drives the port's config-1 single-end path and its config-2 paired-end
+DREAM path once each, at full size, and fails (non-zero exit, no result
+line) on any error, when no CUDA device is present, or when the port cannot
+be imported. Phases:
 
-  1. card   — the card's name and power limit (nvidia-smi);
-  2. build  — nvcc builds the banded-verify kernel from csrc/ (ptxas lines);
-  3. kernel — the kernel against its plain PyTorch edition, exact equality,
-              at the config-1 verify shape, at L=250/E=12 and on edge lanes,
-              with both times from CUDA events;
-  4. chunk  — one 8,192-read chunk through the map step on the CPU and on
-              the card: the bundles must be identical;
-  5. slice  — a 4.6 Mbp genome (seed 12345) and 4 x 65,536 simulated 100 bp
-              reads (bench.py's workload) streamed through dream_map_stream;
-              a 256-read subsample is checked against the golden model;
-  6. result — the kernel table and the device line as JSON.
+  1. card     — the card's name and power limit (nvidia-smi);
+  2. build    — nvcc builds both kernels from csrc/ at once (ptxas lines);
+  3. gather   — the row-gather kernel against its plain edition, exact
+                equality, at the probe shape of each TPU kernel it replaces,
+                at the config-2 path's shapes and on edge indices; both
+                times from CUDA events, in turns;
+  4. verify   — the banded-verify kernel against its plain edition at the
+                config-1 (L=100, E=3) and config-2 (L=150, E=4) shapes, at
+                L=250/E=12 and on edge lanes;
+  5. chunk    — a map-step chunk on the CPU and on the card (bundles
+                identical) and the full chunk with no host sync, config-1
+                and config-2 shapes;
+  6. config-1 — a 4.6 Mbp genome (seed 12345) and 4 x 65,536 simulated
+                100 bp reads (bench.py's workload) streamed through
+                dream_map_stream; a 256-read subsample is checked against
+                the golden model;
+  7. config-2 — 8 bins x 5.8 Mbp (seed 2024) with a 2^31-bit blocked IBF
+                and 4 x 125,000 simulated 150 bp pairs
+                (tools/bench_config2.py's workload) streamed through
+                dream_map_stream: both kernels launched, every read routed
+                to its bin, >= 99 % mapped; a 1,024-pair subsample gives
+                the same SAM bytes on the card and on the CPU;
+  8. result   — the kernel table and the device line as JSON.
 
 Every number printed is measured in this run, on the card named beside it.
 """
@@ -27,7 +40,9 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -38,6 +53,26 @@ BATCH = 65_536
 N_BATCHES = 4
 CHUNK_READS = 8_192
 GOLDEN_READS = 256
+
+C2_BINS = 8
+C2_BIN_LEN = 5_800_000
+C2_READ_LEN = 150
+C2_LL, C2_LD = 350, 80
+C2_BATCH_PAIRS = 125_000
+C2_N_BATCHES = 4
+C2_SUB_PAIRS = 1_024
+
+# (what, TPU kernel it replaces or None, rows, int32 words a row, queries,
+#  index dtype): the probe shape of each TPU kernel, then the config-2
+#  path's shapes: one rank trip of a 65,536-read chunk (2 rows x 5 seeds x
+#  2 bounds) and one classify chunk of block rows
+GATHER_SHAPES = (
+    ("_vmem_kernel probe", "tools/proto_pallas_rank.py:46", 36_000, 24, 1 << 20, "int32"),
+    ("_dma_kernel probe", "tools/proto_pallas_rank.py:78", 36_000, 128, 1 << 20, "int32"),
+    ("_ring_kernel probe", "tools/proto_probe_dma.py:64", 3_145_728, 128, 1_001_472, "int32"),
+    ("config-2 fused rank rows", None, 45_314, 24, 1_310_720, "int32"),
+    ("config-2 IBF block rows", None, 524_288, 64, 4_194_304, "int64"),
+)
 
 
 def log(msg: str) -> None:
@@ -100,6 +135,273 @@ def cuda_time_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def in_turns(plain, kernel, plain_reps: int, kernel_reps: int):
+    """Times (ms) in turns plain, kernel, kernel, plain."""
+    p1 = cuda_time_ms(plain, plain_reps)
+    k1 = cuda_time_ms(kernel, kernel_reps)
+    k2 = cuda_time_ms(kernel, kernel_reps)
+    p2 = cuda_time_ms(plain, plain_reps)
+    return k1, k2, p1, p2
+
+
+def launch_counts() -> dict:
+    from dream_yara_tpu_torch.ops import banded_verify_cuda, row_gather_cuda
+
+    return {"banded_verify": banded_verify_cuda.kernel.launches,
+            "row_gather": row_gather_cuda.kernel.launches}
+
+
+def reset_launch_counts() -> None:
+    from dream_yara_tpu_torch.ops import banded_verify_cuda, row_gather_cuda
+
+    banded_verify_cuda.kernel.launches = 0
+    row_gather_cuda.kernel.launches = 0
+
+
+def sub_batch(batch, ids, paired=False):
+    from dream_yara_tpu_torch._shared import ReadBatch
+
+    n = batch.n_reads
+    return ReadBatch(names=[batch.names[i] for i in ids],
+                     seqs=batch.seqs[np.concatenate([ids, n + ids])],
+                     lengths=batch.lengths[ids],
+                     quals=[batch.quals[i] for i in ids], paired=paired)
+
+
+def phase_build() -> None:
+    """Both kernel libraries, one nvcc each, started together."""
+    from dream_yara_tpu_torch.ops.banded_verify_cuda import kernel as verify_k
+    from dream_yara_tpu_torch.ops.row_gather_cuda import kernel as gather_k
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=2) as ex:
+        paths = list(ex.map(lambda k: k.build(), (verify_k, gather_k)))
+    log(f"[build] {', '.join(p.name for p in paths)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for k in (verify_k, gather_k):
+        for line in k.build_log.splitlines():
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                log(f"[build] {k.source.name}: {line.strip()}")
+
+
+def phase_gather(card):
+    """The row-gather kernel against its plain edition. Returns its kernel
+    table entries, one for each TPU kernel it replaces, timed at that
+    kernel's probe shape."""
+    import torch
+
+    from dream_yara_tpu_torch.ops import row_gather
+    from dream_yara_tpu_torch.ops.row_gather_cuda import kernel
+
+    dev = torch.device("cuda")
+    entries = []
+    worst = 0
+    for what, replaces, nb, W, Q, idt in GATHER_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(nb * 131 + W)
+        table = torch.randint(-2**31, 2**31 - 1, (nb, W), dtype=torch.int32,
+                              generator=g, device=dev)
+        idx = torch.randint(0, nb, (Q,), dtype=getattr(torch, idt),
+                            generator=g, device=dev)
+        got = kernel(table, idx)
+        want = row_gather.gather_rows(table, idx)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        worst = max(worst, err)
+        if not torch.equal(got, want):
+            raise AssertionError(f"gather kernel disagrees at {what}: {err}")
+        k1, k2, p1, p2 = in_turns(lambda: row_gather.gather_rows(table, idx),
+                                  lambda: kernel(table, idx), 10, 10)
+        mb = nb * W * 4 / 2**20
+        log(f"[gather] {what}: table {nb} x {W} int32 ({mb:.1f} MiB), "
+            f"{Q} {idt} queries: exact (max |kernel - plain| = {err}); "
+            f"kernel {k1} / {k2} ms = {Q / k1 * 1e3:.4g} rows/s, "
+            f"plain {p1} / {p2} ms = {Q / p1 * 1e3:.4g} rows/s ({card})")
+        if replaces is not None:
+            entries.append({"name": "row_gather", "route": "cuda",
+                            "source": "dream_yara_tpu_torch/csrc/row_gather.cu",
+                            "replaces": replaces, "ms": k1, "plain_ms": p1})
+        del table, idx, got, want
+    torch.cuda.empty_cache()
+
+    # edge and out-of-range indices at every width the port uses, and at a
+    # width without its own template
+    for W in (24, 64, 128, 8):
+        for idt in (torch.int32, torch.int64):
+            nb = 1000
+            g = torch.Generator(device=dev).manual_seed(W)
+            table = torch.randint(-2**31, 2**31 - 1, (nb, W), dtype=torch.int32,
+                                  generator=g, device=dev)
+            info = torch.iinfo(idt)
+            idx = torch.tensor([0, nb - 1, -1, nb, nb + 5, -nb, info.max,
+                                info.min, 3, 999], dtype=idt, device=dev)
+            got, want = kernel(table, idx), row_gather.gather_rows(table, idx)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"gather kernel disagrees on edge "
+                                     f"indices (W={W}, {idt})")
+    log("[gather] edge and out-of-range indices (0, nb-1, -1, nb, int min/max) "
+        "clamp as in the plain edition at W = 24, 64, 128, 8, int32 and int64")
+    for e in entries:
+        e["max_abs_err"] = worst
+    return entries
+
+
+def phase_verify(text_np, card):
+    """The banded-verify kernel against its plain edition; returns its
+    kernel-table entry."""
+    import torch
+
+    from dream_yara_tpu_torch.ops import verify
+    from dream_yara_tpu_torch.ops.banded_verify_cuda import kernel
+
+    dev = torch.device("cuda")
+    text = torch.from_numpy(text_np).to(dev)
+    rng = np.random.default_rng(7)
+    worst = 0
+    timing = None
+    for C, L, E, edges in ((131_072, 100, 3, False), (131_072, 150, 4, False),
+                           (8_192, 250, 12, False), (4_096, 100, 3, True),
+                           (4_096, 150, 4, True), (4_096, 250, 12, True),
+                           (2_048, 120, 31, True), (2_048, 60, 0, True)):
+        case = verify_case(rng, text_np, C, L, E)
+        if edges:
+            case = edge_case(text_np, *case)
+        anchors, reads, rows, lengths = (torch.from_numpy(a).to(dev) for a in case)
+        got = kernel(text, anchors, reads, rows, lengths, E)
+        want = verify.banded_verify(text, anchors, reads, rows, lengths, E)
+        torch.cuda.synchronize()
+        errs = [int((g.long() - w.long()).abs().max()) for g, w in zip(got, want)]
+        worst = max(worst, *errs)
+        ok_lanes = int((want[0] <= E).sum())
+        log(f"[verify] C={C} L={L} E={E} edges={edges}: max |kernel - plain| "
+            f"dist/begin/end = {errs} (tolerance: exact, integer outputs); "
+            f"lanes within E: {ok_lanes}/{C}")
+        if any(errs):
+            raise AssertionError(f"kernel disagrees with the plain edition at "
+                                 f"C={C} L={L} E={E}: {errs}")
+        if not edges:
+            args = (text, anchors, reads, rows, lengths, E)
+            k1, k2, p1, p2 = in_turns(lambda: verify.banded_verify(*args),
+                                      lambda: kernel(*args), 3, 20)
+            log(f"[verify] C={C} L={L} E={E}: kernel {k1} ms then {k2} ms, "
+                f"plain {p1} ms then {p2} ms ({card})")
+            if (C, L, E) == (131_072, 100, 3):
+                timing = (k1, p1)
+    return {"name": "banded_verify", "route": "cuda",
+            "source": "dream_yara_tpu_torch/csrc/banded_verify.cu",
+            "replaces": "dream_yara_tpu/ops/pallas_verify.py:30",
+            "max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1]}
+
+
+def _no_sync(fn):
+    """Run fn on the card with the sync debug mode on; returns (out, syncs)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, [w for w in caught
+                 if "called a synchronizing CUDA operation" in str(w.message)]
+
+
+def phase_chunk(label, store, fm, batch, L, error_rate, card):
+    """A CHUNK_READS chunk through the map step on the CPU and on the card
+    (identical bundles), then the full 65,536-read chunk on the card: no
+    host sync inside the step, and its time."""
+    import torch
+
+    from dream_yara_tpu_torch.ops.device_index import DeviceFM, to_device
+    from dream_yara_tpu_torch.ops.readpack import pack_blob_with_lengths
+    from dream_yara_tpu_torch.pipeline.map_step import (
+        max_seed_len_static, single_bin_map_step_packed, uniform_len_ok)
+    from dream_yara_tpu_torch.pipeline.seeding import (max_errors_for_batch,
+                                                       rate_to_ppm)
+
+    rate_ppm = rate_to_ppm(error_rate)
+    max_err = max(1, max_errors_for_batch(L, error_rate))
+    devs = {name: torch.device(name) for name in ("cpu", "cuda")}
+    dfm = {name: DeviceFM.from_host(fm, store.text, d) for name, d in devs.items()}
+
+    def step_args(half):
+        ids = np.arange(half)
+        lens = batch.lengths[ids].astype(np.int32)
+        blob = pack_blob_with_lengths(batch.seqs[ids], lens, half, L).view(np.int32)
+        kw = dict(half=half, L=L, rate_ppm=rate_ppm, max_errors=max_err,
+                  capacity=8, max_slen=max_seed_len_static(L, rate_ppm),
+                  prefix_q=fm.prefix_q, compact_cap=2 * half,
+                  uniform_len=uniform_len_ok(lens, L, rate_ppm, max_err))
+        return blob, kw
+
+    blob, kw = step_args(CHUNK_READS)
+    outs = {}
+    for name, d in devs.items():
+        blob_d = to_device(blob, d)
+        t0 = time.perf_counter()
+        if name == "cuda":
+            out, syncs = _no_sync(lambda: single_bin_map_step_packed(
+                dfm[name], blob_d, **kw))
+        else:
+            out, syncs = single_bin_map_step_packed(dfm[name], blob_d, **kw), []
+        outs[name] = [x.cpu().numpy() for x in out]
+        log(f"[chunk] {label} {name}: map step on {CHUNK_READS} reads in "
+            f"{time.perf_counter() - t0:.3f} s (host clock, incl. fetch); "
+            f"host syncs flagged inside the step: {len(syncs)}")
+        if syncs:
+            raise AssertionError(f"the map step synchronised: {syncs[0].message}")
+    for k, (a, b) in enumerate(zip(outs["cpu"], outs["cuda"])):
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError(f"{label} chunk output {k} differs between "
+                                 f"CPU and CUDA")
+    log(f"[chunk] {label}: CPU and CUDA bundles identical "
+        f"({len(outs['cpu'][0])} words; seed arrays {outs['cpu'][1].shape})")
+
+    blob, kw = step_args(BATCH)
+    blob_d = to_device(blob, devs["cuda"])
+    _, syncs = _no_sync(lambda: single_bin_map_step_packed(dfm["cuda"], blob_d, **kw))
+    if syncs:
+        raise AssertionError(f"the {label} map step synchronised: {syncs[0].message}")
+    ms = cuda_time_ms(lambda: single_bin_map_step_packed(dfm["cuda"], blob_d, **kw), 3)
+    log(f"[chunk] {label} chunk ({BATCH} reads, {2 * BATCH} rows, L={L}, "
+        f"E={max_err}): {ms} ms on the card, 0 host syncs in the step ({card})")
+    return dfm["cuda"], blob_d, kw
+
+
+def profile_step(label, fn, card) -> None:
+    """Device time by kernel for one call (torch.profiler; device-side
+    kernel events only, so no time is counted twice)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.self_device_time_total, e.key, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    total = sum(t for t, _, _ in rows)
+    if total == 0:
+        log(f"[profile] {label}: the profiler saw no device time (not measured)")
+        return
+    rows.sort(reverse=True)
+    gather = sum(t for t, k, _ in rows if "row_gather_kernel" in k)
+    log(f"[profile] {label}: {total / 1e3:.3f} ms of device kernels, "
+        f"{sum(n for _, _, n in rows)} launches; row_gather_kernel "
+        f"{gather / 1e3:.3f} ms = {100 * gather / total:.1f} % ({card})")
+    for t, k, n in rows[:8]:
+        log(f"[profile]   {t / 1e3:9.3f} ms  x{n:<5d} {k[:90]}")
+
+
 def simulate_reads(store, n_reads: int):
     """bench.py's read simulator: 100 bp windows with 0-3 substitutions,
     every other read reverse-complemented (seed 999)."""
@@ -120,142 +422,11 @@ def simulate_reads(store, n_reads: int):
     return ReadBatch.from_reads([f"r{i}" for i in range(n_reads)], reads)
 
 
-def sub_batch(batch, ids):
-    from dream_yara_tpu_torch._shared import ReadBatch
-
-    n = batch.n_reads
-    return ReadBatch(names=[batch.names[i] for i in ids],
-                     seqs=batch.seqs[np.concatenate([ids, n + ids])],
-                     lengths=batch.lengths[ids],
-                     quals=[batch.quals[i] for i in ids], paired=False)
-
-
-def phase_kernel(text_np, card):
-    """Kernel against plain edition; returns the kernel-table entry."""
-    import torch
-
-    from dream_yara_tpu_torch.ops import verify
-    from dream_yara_tpu_torch.ops.banded_verify_cuda import kernel
-
-    dev = torch.device("cuda")
-    text = torch.from_numpy(text_np).to(dev)
-    rng = np.random.default_rng(7)
-    worst = 0
-    timing = None
-    for C, L, E, edges in ((131_072, 100, 3, False), (8_192, 250, 12, False),
-                           (4_096, 100, 3, True), (4_096, 250, 12, True),
-                           (2_048, 120, 31, True), (2_048, 60, 0, True)):
-        case = verify_case(rng, text_np, C, L, E)
-        if edges:
-            case = edge_case(text_np, *case)
-        anchors, reads, rows, lengths = (torch.from_numpy(a).to(dev) for a in case)
-        got = kernel(text, anchors, reads, rows, lengths, E)
-        want = verify.banded_verify(text, anchors, reads, rows, lengths, E)
-        torch.cuda.synchronize()
-        errs = [int((g.long() - w.long()).abs().max()) for g, w in zip(got, want)]
-        worst = max(worst, *errs)
-        ok_lanes = int((want[0] <= E).sum())
-        log(f"[kernel] C={C} L={L} E={E} edges={edges}: max |kernel - plain| "
-            f"dist/begin/end = {errs} (tolerance: exact, integer outputs); "
-            f"lanes within E: {ok_lanes}/{C}")
-        if any(errs):
-            raise AssertionError(f"kernel disagrees with the plain edition at "
-                                 f"C={C} L={L} E={E}: {errs}")
-        if (C, L, E) == (131_072, 100, 3):
-            args = (text, anchors, reads, rows, lengths, E)
-            # in turns: plain, kernel, kernel, plain
-            plain_ms = cuda_time_ms(lambda: verify.banded_verify(*args), 3)
-            ms = cuda_time_ms(lambda: kernel(*args), 20)
-            ms2 = cuda_time_ms(lambda: kernel(*args), 20)
-            plain_ms2 = cuda_time_ms(lambda: verify.banded_verify(*args), 3)
-            timing = (ms, plain_ms, ms2, plain_ms2)
-        if (C, L, E) == (8_192, 250, 12):
-            args = (text, anchors, reads, rows, lengths, E)
-            log(f"[kernel] C=8192 L=250 E=12: kernel "
-                f"{cuda_time_ms(lambda: kernel(*args), 20)} ms, plain "
-                f"{cuda_time_ms(lambda: verify.banded_verify(*args), 3)} ms ({card})")
-    ms, plain_ms, ms2, plain_ms2 = timing
-    log(f"[kernel] C=131072 L=100 E=3 (config-1 verify lanes): kernel {ms} ms "
-        f"then {ms2} ms, plain {plain_ms} ms then {plain_ms2} ms ({card})")
-    return {"name": "banded_verify", "route": "cuda",
-            "source": "dream_yara_tpu_torch/csrc/banded_verify.cu",
-            "replaces": "dream_yara_tpu/ops/pallas_verify.py:30",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
-
-
-def phase_chunk(store, fm, batch, card):
-    """One 8,192-read chunk through the map step on the CPU and on the card."""
-    import warnings
-
-    import torch
-
-    from dream_yara_tpu_torch.ops.device_index import DeviceFM, to_device
-    from dream_yara_tpu_torch.ops.readpack import pack_blob_with_lengths
-    from dream_yara_tpu_torch.pipeline.map_step import (
-        max_seed_len_static, single_bin_map_step_packed, uniform_len_ok)
-
-    half = CHUNK_READS
-    ids = np.arange(half)
-    L = READ_LEN
-    rate_ppm, max_err = 300, 3
-    lens = batch.lengths[ids].astype(np.int32)
-    blob = pack_blob_with_lengths(batch.seqs[ids], lens, half, L).view(np.int32)
-    kw = dict(half=half, L=L, rate_ppm=rate_ppm, max_errors=max_err, capacity=8,
-              max_slen=max_seed_len_static(L, rate_ppm), prefix_q=fm.prefix_q,
-              compact_cap=2 * half,
-              uniform_len=uniform_len_ok(lens, L, rate_ppm, max_err))
-    outs = {}
-    for name in ("cpu", "cuda"):
-        dev = torch.device(name)
-        dfm = DeviceFM.from_host(fm, store.text, dev)
-        blob_d = to_device(blob, dev)
-        t0 = time.perf_counter()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            if name == "cuda":
-                torch.cuda.synchronize()
-                torch.cuda.set_sync_debug_mode("warn")
-            try:
-                out = single_bin_map_step_packed(dfm, blob_d, **kw)
-            finally:
-                if name == "cuda":
-                    torch.cuda.set_sync_debug_mode("default")
-        syncs = [w for w in caught
-                 if "called a synchronizing CUDA operation" in str(w.message)]
-        outs[name] = [x.cpu().numpy() for x in out]
-        dt = time.perf_counter() - t0
-        log(f"[chunk] {name}: map step on {half} reads in {dt:.3f} s (host clock, "
-            f"incl. fetch); host syncs flagged inside the step: {len(syncs)}")
-        for w in syncs[:5]:
-            log(f"[chunk]   sync: {w.message}")
-        if syncs:
-            raise AssertionError("the map step synchronised with the host")
-    for k, (a, b) in enumerate(zip(outs["cpu"], outs["cuda"])):
-        if a.dtype != b.dtype or not np.array_equal(a, b):
-            raise AssertionError(f"chunk output {k} differs between CPU and CUDA")
-    log(f"[chunk] CPU and CUDA bundles identical ({len(outs['cpu'][0])} words; "
-        f"seed arrays {outs['cpu'][1].shape})")
-
-    # the config-1 chunk: 65,536 reads = 131,072 rows, timed on the card
-    half = BATCH
-    ids = np.arange(half)
-    lens = batch.lengths[ids].astype(np.int32)
-    blob = pack_blob_with_lengths(batch.seqs[ids], lens, half, L).view(np.int32)
-    dev = torch.device("cuda")
-    dfm = DeviceFM.from_host(fm, store.text, dev)
-    blob_d = to_device(blob, dev)
-    kw.update(half=half, compact_cap=2 * half)
-    ms = cuda_time_ms(lambda: single_bin_map_step_packed(dfm, blob_d, **kw), 3)
-    log(f"[chunk] config-1 chunk ({half} reads, {2 * half} rows) map step: "
-        f"{ms} ms on the card ({card})")
-
-
-def phase_slice(store, fm, batches, card):
+def phase_config1(store, fm, batches, card):
     import torch
 
     from dream_yara_tpu_torch._shared import (MapperOptions, StageTimers,
                                               golden_map_se)
-    from dream_yara_tpu_torch.ops.banded_verify_cuda import kernel
     from dream_yara_tpu_torch.pipeline.dis_mapper import (DreamIndex,
                                                           dream_map_sam,
                                                           dream_map_stream)
@@ -267,33 +438,33 @@ def phase_slice(store, fm, batches, card):
     t0 = time.perf_counter()
     dream_map_sam(index, batches[0], opts, header=False)    # index upload, warm-up
     torch.cuda.synchronize()
-    log(f"[slice] warm-up batch (index upload + first batch): "
+    log(f"[config-1] warm-up batch (index upload + first batch): "
         f"{time.perf_counter() - t0:.3f} s")
 
     n_total = sum(b.n_reads for b in batches)
     timers = StageTimers()
     stats: dict = {}
     torch.cuda.reset_peak_memory_stats()
-    kernel.launches = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     sams = list(dream_map_stream(index, iter(batches), opts, timers=timers,
                                  stats=stats))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = kernel.launches
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     n_records = sum(sum(1 for line in s.split(b"\n") if line and line[:1] != b"@")
                     for s in sams)
-    log(f"[slice] {n_total} reads in {wall:.3f} s = {n_total / wall:.1f} reads/s "
+    log(f"[config-1] {n_total} reads in {wall:.3f} s = {n_total / wall:.1f} reads/s "
         f"({card}); SAM records {n_records}; mapped {stats['mapped']}, "
         f"unique {stats['unique']}")
-    log(f"[slice] peak device memory {peak} bytes ({peak / 2**20:.1f} MiB) ({card})")
-    log(f"[slice] stage timers ({card}):\n{timers.report()}")
-    log(f"[slice] banded-verify kernel launches in the stream: {launches}")
+    log(f"[config-1] peak device memory {peak} bytes ({peak / 2**20:.1f} MiB) ({card})")
+    log(f"[config-1] stage timers ({card}):\n{timers.report()}")
+    log(f"[config-1] kernel launches in the stream: {launches}")
     if n_records < n_total:
         raise AssertionError(f"{n_records} SAM records for {n_total} reads")
-    if launches == 0:
-        raise AssertionError("the stream never launched the verify kernel")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"the config-1 stream skipped a kernel: {launches}")
     if "overflow fallback" in timers.totals:
         raise AssertionError("a seed overflowed its capacity")
     if stats["mapped"] < 0.99 * n_total:
@@ -316,8 +487,180 @@ def phase_slice(store, fm, batches, card):
     recs = lambda s: [l for l in s.split(b"\n") if l and l[:1] != b"@"]
     if recs(sams[0])[:GOLDEN_READS] != recs(single_bin_sam(store, fm, sub, opts, dev)):
         raise AssertionError("stream SAM records differ from the subsample's")
-    log(f"[slice] golden model agrees on {GOLDEN_READS} reads (matches, c1, c2), "
-        f"and the stream's records for them are identical")
+    log(f"[config-1] golden model agrees on {GOLDEN_READS} reads (matches, c1, "
+        f"c2), and the stream's records for them are identical")
+
+
+def build_config2():
+    """tools/bench_config2.py's database: 8 random bins of 5.8 Mbp from
+    default_rng(2024), an FM index each, and a 2^31-bit blocked canonical
+    IBF (3 hashes, k = 19) over them."""
+    from dream_yara_tpu_torch._shared import (FMIndex, InterleavedBloomFilter,
+                                              SeqStore)
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(2024)
+    genomes = [rng.integers(0, 4, C2_BIN_LEN).astype(np.int8)
+               for _ in range(C2_BINS)]
+    stores = [SeqStore.from_seqs([f"chr{b}"], [g]) for b, g in enumerate(genomes)]
+    fms = [FMIndex.build(stores[0].text)]      # builds the native libraries once
+    with ThreadPoolExecutor(max_workers=C2_BINS - 1) as ex:
+        fms += list(ex.map(lambda st: FMIndex.build(st.text), stores[1:]))
+    t1 = time.perf_counter()
+    ibf = InterleavedBloomFilter.create(C2_BINS, size_bits=1 << 31, n_hashes=3,
+                                        k=19)
+    for b, g in enumerate(genomes):
+        ibf.add_kmers(g, b)
+    log(f"[config-2] {C2_BINS} bins x {C2_BIN_LEN} bp, FM indexes (q="
+        f"{fms[0].prefix_q}) in {t1 - t0:.1f} s, IBF ({ibf.words.nbytes} bytes, "
+        f"blocked={ibf.blocked}, canonical={ibf.canonical}) in "
+        f"{time.perf_counter() - t1:.1f} s (host)")
+    return genomes, stores, fms, ibf
+
+
+def make_pairs(genomes, n_pairs, rng):
+    """tools/bench_config2.py's pair simulator: 150 bp FR pairs with insert
+    lengths within 350 +- 80 and 0-4 substitutions per mate. Returns the
+    paired batch and each pair's bin."""
+    from dream_yara_tpu_torch._shared import ReadBatch
+
+    b_of = rng.integers(0, C2_BINS, n_pairs)
+    tlen = rng.integers(C2_LL - C2_LD + 10, C2_LL + C2_LD - 10, n_pairs)
+    p = rng.integers(0, C2_BIN_LEN - (C2_LL + C2_LD), n_pairs)
+    m1 = np.empty((n_pairs, C2_READ_LEN), dtype=np.int8)
+    m2 = np.empty((n_pairs, C2_READ_LEN), dtype=np.int8)
+    win = np.arange(C2_READ_LEN)
+    for b in range(C2_BINS):
+        sel = np.flatnonzero(b_of == b)
+        g = genomes[b]
+        m1[sel] = g[p[sel, None] + win[None, :]]
+        starts2 = p[sel] + tlen[sel] - C2_READ_LEN
+        r2 = g[starts2[:, None] + win[None, :]]
+        m2[sel] = np.where(r2[:, ::-1] < 4, 3 - r2[:, ::-1], r2[:, ::-1])
+    for m in (m1, m2):
+        nsub = rng.integers(0, 5, n_pairs)
+        for s in range(1, 5):
+            rows = np.flatnonzero(nsub >= s)
+            cols = rng.integers(0, C2_READ_LEN, len(rows))
+            m[rows, cols] = (m[rows, cols] + rng.integers(1, 4, len(rows))) % 4
+    names = [f"p{i}" for i in range(n_pairs)]
+    batch = ReadBatch.from_dense(names * 2, np.concatenate([m1, m2]),
+                                 np.full(2 * n_pairs, C2_READ_LEN, np.int32),
+                                 paired=True)
+    return batch, b_of
+
+
+def phase_config2(card):
+    import torch
+
+    from dream_yara_tpu_torch._shared import MapperOptions, StageTimers
+    from dream_yara_tpu_torch.ops.ibf_query import ibf_classify_packed
+    from dream_yara_tpu_torch.ops.readpack import pack_blob_with_lengths
+    from dream_yara_tpu_torch.ops.device_index import to_device
+    from dream_yara_tpu_torch.pipeline.dis_mapper import (IBF_READS, DreamIndex,
+                                                          classify_reads,
+                                                          dream_map_sam,
+                                                          dream_map_stream)
+    from dream_yara_tpu_torch.pipeline.map_step import single_bin_map_step_packed
+
+    genomes, stores, fms, ibf = build_config2()
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(7)
+    made = [make_pairs(genomes, C2_BATCH_PAIRS, rng) for _ in range(C2_N_BATCHES)]
+    batches = [b for b, _ in made]
+    log(f"[config-2] simulated {C2_N_BATCHES} x {C2_BATCH_PAIRS} pairs in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    dfm, blob_d, kw = phase_chunk("config-2", stores[0], fms[0], batches[0],
+                                  C2_READ_LEN, ERROR_RATE, card)
+    profile_step("config-2 map-step chunk (65,536 reads)",
+                 lambda: single_bin_map_step_packed(dfm, blob_d, **kw), card)
+    del dfm, blob_d
+
+    dev = torch.device("cuda")
+    opts = MapperOptions(error_rate=ERROR_RATE, library_length=C2_LL,
+                         library_deviation=C2_LD, secondary_matches="tag")
+    index = DreamIndex(stores, fms, ibf, "bloom", device=dev)
+    t0 = time.perf_counter()
+    dream_map_sam(index, batches[0], opts, header=False)  # uploads, warm-up
+    torch.cuda.synchronize()
+    log(f"[config-2] warm-up batch (index and filter upload + first batch): "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    words, block_s, _ = index.device_filter()
+    ids = np.arange(IBF_READS)
+    b0 = batches[0]
+    blob = pack_blob_with_lengths(b0.seqs[ids], b0.lengths[ids], IBF_READS,
+                                  C2_READ_LEN)
+    cblob = to_device(blob.view(np.int32), dev)
+    profile_step(f"config-2 classify call ({IBF_READS} reads)",
+                 lambda: ibf_classify_packed(
+                     words, cblob, None, half=IBF_READS, L=C2_READ_LEN,
+                     k=ibf.k, n_hashes=ibf.n_hashes, rate_ppm=300,
+                     canonical=True, blocked=True, n_bins=C2_BINS,
+                     block_s=block_s), card)
+
+    n_total = sum(b.n_reads for b in batches)
+    timers = StageTimers()
+    stats: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    n_records = 0
+    for sam in dream_map_stream(index, iter(batches), opts, timers=timers,
+                                stats=stats):
+        n_records += sum(1 for line in sam.split(b"\n")
+                         if line and line[:1] != b"@")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[config-2] {n_total} reads ({n_total // 2} pairs) in {wall:.3f} s = "
+        f"{n_total / wall:.1f} reads/s ({card}); SAM records {n_records}; "
+        f"mapped {stats['mapped']} ({100 * stats['mapped'] / n_total:.3f} %), "
+        f"unique {stats['unique']}, proper pairs {stats['proper_pairs']}")
+    log(f"[config-2] peak device memory {peak} bytes ({peak / 2**20:.1f} MiB) ({card})")
+    log(f"[config-2] stage timers ({card}):\n{timers.report()}")
+    log(f"[config-2] kernel launches in the stream: {launches}")
+    if n_records < n_total:
+        raise AssertionError(f"{n_records} SAM records for {n_total} reads")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"the config-2 stream skipped a kernel: {launches}")
+    if "overflow fallback" in timers.totals:
+        raise AssertionError("a seed overflowed its capacity")
+    if stats["mapped"] < 0.99 * n_total:
+        raise AssertionError(f"only {stats['mapped']} of {n_total} reads mapped")
+
+    # routing: every mate has <= 4 substitutions with E = 4, so the k-mer
+    # lemma routes it to its own bin
+    routed, n_bins_total = 0, 0
+    for batch, b_of in made:
+        mask = classify_reads(index, batch, opts)
+        truth = np.concatenate([b_of, b_of])
+        missed = np.flatnonzero(~mask[np.arange(batch.n_reads), truth])
+        if len(missed):
+            raise AssertionError(f"{len(missed)} reads not routed to their "
+                                 f"bin, e.g. read {missed[0]}")
+        routed += batch.n_reads
+        n_bins_total += int(mask.sum())
+    log(f"[config-2] every one of {routed} reads routed to its true bin; "
+        f"mean bins per read {n_bins_total / routed:.5f}")
+
+    # the card against the port's own CPU run on a subsample
+    pids = np.arange(C2_SUB_PAIRS)
+    sub = sub_batch(batches[0], np.concatenate(
+        [pids, C2_BATCH_PAIRS + pids]), paired=True)
+    card_sam = dream_map_sam(index, sub, opts, cmdline="sub")
+    t0 = time.perf_counter()
+    cpu_index = DreamIndex(stores, fms, ibf, "bloom", device=torch.device("cpu"))
+    cpu_sam = dream_map_sam(cpu_index, sub, opts, cmdline="sub")
+    if card_sam != cpu_sam:
+        raise AssertionError("config-2 subsample SAM differs between the card "
+                             "and the CPU")
+    log(f"[config-2] {C2_SUB_PAIRS}-pair subsample: SAM identical on the card "
+        f"and on the CPU ({len(card_sam)} bytes; CPU run "
+        f"{time.perf_counter() - t0:.1f} s)")
     return launches
 
 
@@ -329,39 +672,54 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from dream_yara_tpu_torch._shared import FMIndex, SeqStore
-    from dream_yara_tpu_torch.ops.banded_verify_cuda import kernel
 
+    t_start = time.perf_counter()
     card = card_line()
     log(card)
     log(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
 
-    t0 = time.perf_counter()
-    path = kernel.build()
-    log(f"[build] {path.name} in {time.perf_counter() - t0:.1f} s")
-    for line in kernel.build_log.splitlines():
-        log(f"[build] {line.strip()}")
+    # host work that needs no card runs beside the build
+    genome_box: dict = {}
 
-    t0 = time.perf_counter()
-    genome = np.random.default_rng(12345).integers(0, 4, GENOME_LEN).astype(np.int8)
-    store = SeqStore.from_seqs(["ecoli_sim"], [genome])
-    fm = FMIndex.build(store.text)
-    log(f"[slice] genome {GENOME_LEN} bp, FM index with q={fm.prefix_q} built "
-        f"in {time.perf_counter() - t0:.1f} s")
+    def make_genome():
+        t0 = time.perf_counter()
+        genome = np.random.default_rng(12345).integers(0, 4, GENOME_LEN).astype(np.int8)
+        store = SeqStore.from_seqs(["ecoli_sim"], [genome])
+        genome_box["index"] = (store, FMIndex.build(store.text))
+        genome_box["seconds"] = time.perf_counter() - t0
 
-    entry = phase_kernel(store.text, card)
+    host = threading.Thread(target=make_genome)
+    host.start()
+    try:
+        phase_build()
+    finally:
+        host.join()
+    if "index" not in genome_box:
+        raise RuntimeError("the config-1 FM index build failed")
+    store, fm = genome_box["index"]
+    log(f"[config-1] genome {GENOME_LEN} bp, FM index with q={fm.prefix_q} "
+        f"built in {genome_box['seconds']:.1f} s")
+
+    gather_entries = phase_gather(card)
+    verify_entry = phase_verify(store.text, card)
 
     t0 = time.perf_counter()
     full = simulate_reads(store, N_BATCHES * BATCH)
     batches = [sub_batch(full, np.arange(b0, b0 + BATCH))
                for b0 in range(0, N_BATCHES * BATCH, BATCH)]
-    log(f"[slice] simulated {N_BATCHES} x {BATCH} reads in "
+    log(f"[config-1] simulated {N_BATCHES} x {BATCH} reads in "
         f"{time.perf_counter() - t0:.1f} s")
+    phase_chunk("config-1", store, fm, batches[0], READ_LEN, ERROR_RATE, card)
+    phase_config1(store, fm, batches, card)
+    del full, batches
 
-    phase_chunk(store, fm, batches[0], card)
-    entry["launches"] = phase_slice(store, fm, batches, card)
-
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    launches = phase_config2(card)
+    verify_entry["launches"] = launches["banded_verify"]
+    for e in gather_entries:
+        e["launches"] = launches["row_gather"]
+    log(f"[done] smoke run {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": [verify_entry, *gather_entries]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

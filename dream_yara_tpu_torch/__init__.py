@@ -6,15 +6,21 @@ against. It imports `torch` and never `jax`; the reference's JAX-free host
 code (index, io, utils, native, golden and the host pipeline stages) is
 shared through `_shared`.
 
-Layer map of the first slice (config-1 single-end mapping):
+Layer map of the ported slices (config-1 single-end, config-2 DREAM
+paired-end with the IBF prefilter):
   ops/device_index  — the host FM index moved onto the device
   ops/readpack      — 2-bit read blob packing (host) and unpacking (device)
   ops/rank          — fused rank rows: build (host) and rank queries (device)
   ops/backward_search — exact seed search with the q-mer prefix jump, hit expansion
-  ops/verify        — banded verification DP, plain PyTorch edition
-  ops/banded_verify_cuda + csrc/banded_verify.cu — the hand-written CUDA kernel
+  ops/ibf_query     — k-mer hashing, IBF/kdx bin counts and the packed
+                      candidate mask of the prefilter
+  ops/verify, ops/row_gather — plain PyTorch editions of the two kernels
+  ops/banded_verify_cuda + csrc/banded_verify.cu,
+  ops/row_gather_cuda + csrc/row_gather.cu — the hand-written CUDA kernels
+                      (built by ops/nvcc_build)
   pipeline/seeding, map_step, mapper, dis_mapper — seeds, the map step,
-                      chunking and the DREAM stream
+                      chunking, mate rescue and pairing, routing and the
+                      DREAM stream
 
 Every entry point takes an explicit `device`; there is no default.
 """

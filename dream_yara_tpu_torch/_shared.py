@@ -68,20 +68,26 @@ _install_pipeline_package()
 # ruff: noqa: E402 — the imports below need the package installed above
 from dream_yara_tpu.golden.golden_mapper import golden_map_se
 from dream_yara_tpu.index.fmindex import BLOCK, FMIndex
+from dream_yara_tpu.index.hashing import BLOCK_WORDS, HASH_SEEDS, MIX_MULT
+from dream_yara_tpu.index.ibf import InterleavedBloomFilter
+from dream_yara_tpu.index.kdx import DirectKmerFilter
 from dream_yara_tpu.io.readstore import ReadBatch
 from dream_yara_tpu.io.seqstore import SeqStore
 from dream_yara_tpu.pipeline.cigar import compute_cigars
 from dream_yara_tpu.pipeline.matches import (Matches, Ranked, build_matches,
                                              dedup_matches, rank_matches)
+from dream_yara_tpu.pipeline.pairs import rescue_candidates, select_pairs
 from dream_yara_tpu.pipeline.writer import (GlobalContigs, sam_header,
-                                            write_se_records)
+                                            write_pe_records, write_se_records)
 from dream_yara_tpu.utils.alphabet import revcomp
 from dream_yara_tpu.utils.options import MapperOptions
 from dream_yara_tpu.utils.timer import StageTimers
 
 __all__ = [
-    "BLOCK", "FMIndex", "GlobalContigs", "MapperOptions", "Matches", "Ranked",
-    "ReadBatch", "SeqStore", "StageTimers", "build_matches", "compute_cigars",
-    "dedup_matches", "golden_map_se", "rank_matches", "revcomp",
-    "sam_header", "write_se_records",
+    "BLOCK", "BLOCK_WORDS", "DirectKmerFilter", "FMIndex", "GlobalContigs",
+    "HASH_SEEDS", "InterleavedBloomFilter", "MIX_MULT", "MapperOptions",
+    "Matches", "Ranked", "ReadBatch", "SeqStore", "StageTimers",
+    "build_matches", "compute_cigars", "dedup_matches", "golden_map_se",
+    "rank_matches", "rescue_candidates", "revcomp", "sam_header",
+    "select_pairs", "write_pe_records", "write_se_records",
 ]

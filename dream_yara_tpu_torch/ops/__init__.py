@@ -1,3 +1,3 @@
 """Device operations of the port: plain PyTorch functions on tensors, and the
-hand-written CUDA kernel behind `banded_verify_cuda`. Nothing is imported
-eagerly: the kernel builds at first use, never at import."""
+hand-written CUDA kernels behind `banded_verify_cuda` and `row_gather_cuda`.
+Nothing is imported eagerly: a kernel builds at first use, never at import."""

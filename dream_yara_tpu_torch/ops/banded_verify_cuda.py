@@ -3,85 +3,33 @@ the one entry point every verification in the port goes through.
 
 `banded_verify` takes the arguments of ops/verify.py::banded_verify. A CPU
 tensor runs that plain edition; a CUDA tensor launches the kernel or raises.
-The kernel is compiled at first use with nvcc for sm_90a into
-dream_yara_tpu_torch/build/, cached by a hash of the source, and bound with
-ctypes (a plain C interface: no PyTorch headers, so the build takes seconds).
+The kernel is compiled at first use (ops/nvcc_build.py) and bound with
+ctypes.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 
 import torch
 
 from . import verify as _plain
+from .nvcc_build import NvccKernel
 
-PKG_DIR = Path(__file__).resolve().parent.parent
-SOURCE = PKG_DIR / "csrc" / "banded_verify.cu"
-BUILD_DIR = PKG_DIR / "build"
 MAX_E = 31
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
-def _find_nvcc() -> str:
-    nvcc = shutil.which("nvcc")
-    if nvcc is None and Path("/usr/local/cuda/bin/nvcc").exists():
-        nvcc = "/usr/local/cuda/bin/nvcc"
-    if nvcc is None:
-        raise RuntimeError("nvcc not found: the banded-verify kernel cannot be "
-                           "built (put the CUDA toolkit's bin/ on PATH)")
-    return nvcc
-
-
-class BandedVerifyKernel:
-    """Build-once handle of the kernel library, with its launch counter.
-
-    `launches` grows by one where the kernel is launched and nowhere else,
-    so a run can show that its main path went through the kernel."""
+class BandedVerifyKernel(NvccKernel):
+    """Build-once handle of csrc/banded_verify.cu, with its launch counter."""
 
     def __init__(self):
-        self.launches = 0
-        self.build_log = ""
-        self._lib = None
-        self._lock = threading.Lock()
+        super().__init__("banded_verify.cu")
 
-    def library_path(self) -> Path:
-        digest = hashlib.sha256(SOURCE.read_bytes()
-                                + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        return BUILD_DIR / f"libdy_banded_verify-{digest}.so"
-
-    def build(self) -> Path:
-        """Compile the library unless a build of the same source exists."""
-        out = self.library_path()
-        if out.exists():
-            return out
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-        cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        self.build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{self.build_log}")
-        os.replace(tmp, out)
-        return out
-
-    def _load(self):
-        with self._lock:
-            if self._lib is None:
-                lib = ctypes.CDLL(str(self.build()))
-                p, i = ctypes.c_void_p, ctypes.c_int
-                lib.dy_banded_verify.argtypes = [
-                    p, ctypes.c_longlong, p, p, i, i, p, p, i, i, p, p, p, p]
-                lib.dy_banded_verify.restype = i
-                self._lib = lib
-            return self._lib
+    def _bind(self, lib):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.dy_banded_verify.argtypes = [
+            p, ctypes.c_longlong, p, p, i, i, p, p, i, i, p, p, p, p]
+        lib.dy_banded_verify.restype = i
 
     def __call__(self, text, anchors, reads, read_rows, lengths, max_err: int):
         """Launch on the current stream of the tensors' device; returns
@@ -121,10 +69,7 @@ class BandedVerifyKernel:
                 reads.data_ptr(), L, R2, read_rows.data_ptr(),
                 lengths.data_ptr(), C, E, dist.data_ptr(), beg.data_ptr(),
                 end.data_ptr(), stream)
-        if err != 0:
-            raise RuntimeError(f"banded-verify kernel launch failed: CUDA error {err}")
-        with self._lock:
-            self.launches += 1
+        self._launched(err)
         return dist, beg, end
 
 

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .._shared import BLOCK
+from .row_gather_cuda import gather_rows
 
 _LOG2_BLOCK = 7
 assert BLOCK == 1 << _LOG2_BLOCK
@@ -42,10 +43,10 @@ def rank_fused(fused: torch.Tensor, c: torch.Tensor, i: torch.Tensor) -> torch.T
     """Occurrences of symbol c[q] in bwt[0 : i[q]) for each query q.
 
     fused: (n_blocks + 1, 24) int32; c, i: (Q,) int32 with 0 <= i <= n.
-    Returns (Q,) int32."""
-    b = (i >> _LOG2_BLOCK).long()
+    Returns (Q,) int32. The rows are fetched by the row-gather kernel on a
+    card (ops/row_gather_cuda.py)."""
     r = i & (BLOCK - 1)
-    return rank_fused_rows(fused[b], c, r)
+    return rank_fused_rows(gather_rows(fused, i >> _LOG2_BLOCK), c, r)
 
 
 def rank_fused_rows(row: torch.Tensor, c: torch.Tensor, r: torch.Tensor) -> torch.Tensor:

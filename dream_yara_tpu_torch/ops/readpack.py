@@ -73,6 +73,12 @@ def pack_blob_with_lengths(seqs_fwd: np.ndarray, lengths: np.ndarray,
     return blob
 
 
+def int32_bits(v: torch.Tensor) -> torch.Tensor:
+    """int64 holding a uint32 bit pattern -> the int32 with the same bits."""
+    v = v & 0xFFFFFFFF
+    return (v - ((v >> 31) << 32)).to(torch.int32)
+
+
 def unpack_blob(blob: torch.Tensor, half: int, L: int):
     """Device-side split of a blob held as int32: (packed, nmask, lengths)."""
     Wp = (L + 15) // 16

@@ -1,10 +1,10 @@
-"""DREAM orchestration: routing + per-bin mapping + global merge
-(counterpart of dream_yara_tpu/pipeline/dis_mapper.py).
+"""DREAM orchestration: prefilter routing + per-bin mapping + global merge,
+single-end and paired-end (counterpart of
+dream_yara_tpu/pipeline/dis_mapper.py).
 
-This slice routes with filter `none` (every read to every bin) and maps
-single-end batches. The IBF and k-mer-direct prefilters (ROADMAP Queue 1
-item 13) and paired-end batches with mate rescue (item 10) raise
-NotImplementedError rather than degrade.
+Routing takes the IBF (`bloom`), the direct k-mer filter (`kmer_direct`)
+or none. A DreamIndex uploads its filter once, at the first classify;
+the reference re-uploads it for every batch, with the same output.
 """
 
 from __future__ import annotations
@@ -20,15 +20,22 @@ from queue import Queue
 import numpy as np
 import torch
 
-from .._shared import (FMIndex, GlobalContigs, Matches, MapperOptions, Ranked,
-                       ReadBatch, SeqStore, StageTimers, compute_cigars,
-                       dedup_matches, rank_matches, sam_header,
-                       write_se_records)
-from .mapper import BinMapper, _not_ported
-from .seeding import max_errors_for_batch
+from .._shared import (DirectKmerFilter, FMIndex, GlobalContigs,
+                       InterleavedBloomFilter, Matches, MapperOptions, Ranked,
+                       ReadBatch, SeqStore, StageTimers, build_matches,
+                       compute_cigars, dedup_matches, rank_matches,
+                       rescue_candidates, sam_header, select_pairs,
+                       write_pe_records, write_se_records)
+from ..ops.device_index import to_device
+from ..ops.ibf_query import host_block_rows, ibf_classify_packed
+from ..ops.readpack import pack_blob_with_lengths
+from .mapper import BinMapper, _Fetch, verify_padded
+from .seeding import max_errors_for_batch, rate_to_ppm
 
 # finisher-pool threads (dream_map_stream) share the caller's stats dict
 _STATS_LOCK = threading.Lock()
+
+IBF_READS = 32768  # reads per device classify call
 
 
 def bin_file(db_dir, bin_id: int, kind: str) -> Path:
@@ -38,7 +45,8 @@ def bin_file(db_dir, bin_id: int, kind: str) -> Path:
 
 class DreamIndex:
     """All per-bin artifacts + the prefilter, with the bins' device indexes
-    built on `device` when a bin is first mapped."""
+    built on `device` when a bin is first mapped and the filter uploaded at
+    the first classify."""
 
     def __init__(self, stores: list[SeqStore], fms: list[FMIndex], filt,
                  filter_type: str = "bloom", *, device: torch.device):
@@ -50,6 +58,10 @@ class DreamIndex:
         self.contigs = GlobalContigs.from_stores(stores)
         self.global_text = np.concatenate([st.text for st in stores])
         self._bin_mappers: dict[int, BinMapper] = {}
+        self._dev_filter = None
+        # the device worker and the finisher threads (mate rescue) both
+        # create bin mappers and may both reach the filter
+        self._lock = threading.Lock()
 
     @property
     def n_bins(self) -> int:
@@ -58,38 +70,94 @@ class DreamIndex:
     @classmethod
     def load(cls, db_dir, filter_type: str = "bloom", *,
              device: torch.device) -> "DreamIndex":
-        """Per-bin stores and FM indexes of a database directory. As in the
-        reference, a missing filter file means filter `none`; a present
-        one needs the prefilter, which is not ported. Bidirectional
-        sidecars serve only the repetitive pass and are not read."""
+        """Per-bin stores and FM indexes of a database directory and the
+        requested prefilter. As in the reference, a missing filter file
+        means filter `none`. Bidirectional sidecars serve only the
+        repetitive pass and are not read."""
         db_dir = Path(db_dir)
-        filter_file = {"bloom": "db.filter.npz", "kmer_direct": "db.kdx.npz"}
-        if filter_type in filter_file and (db_dir / filter_file[filter_type]).exists():
-            raise _not_ported(f"the {filter_type!r} prefilter", 13)
         meta = json.loads((db_dir / "meta.json").read_text())
         stores = [SeqStore.load(bin_file(db_dir, b, "store"))
                   for b in range(meta["n_bins"])]
         fms = [FMIndex.load(bin_file(db_dir, b, "fm"))
                for b in range(meta["n_bins"])]
-        return cls(stores, fms, None, "none", device=device)
+        filt = None
+        if filter_type == "bloom" and (db_dir / "db.filter.npz").exists():
+            filt = InterleavedBloomFilter.load(db_dir / "db.filter")
+        elif filter_type == "kmer_direct" and (db_dir / "db.kdx.npz").exists():
+            filt = DirectKmerFilter.load(db_dir / "db.kdx")
+        return cls(stores, fms, filt, filter_type, device=device)
 
     def bin_mapper(self, b: int, opts: MapperOptions,
                    timers: StageTimers | None = None) -> BinMapper:
-        if b not in self._bin_mappers:
-            self._bin_mappers[b] = BinMapper(self.stores[b], self.fms[b], opts,
-                                             self.device, timers=timers)
-        bm = self._bin_mappers[b]
+        with self._lock:
+            if b not in self._bin_mappers:
+                self._bin_mappers[b] = BinMapper(self.stores[b], self.fms[b],
+                                                 opts, self.device,
+                                                 timers=timers)
+            bm = self._bin_mappers[b]
         if timers is not None:
             bm.timers = timers
         return bm
 
+    def device_filter(self):
+        """The prefilter's words on the device, uploaded once:
+        (words, block_s, slack_table). Blocked filters take the
+        host_block_rows layout (block_s = S); the others keep only the
+        words that hold real bins (block_s = 0)."""
+        with self._lock:
+            if self._dev_filter is None:
+                filt, B = self.filter, self.n_bins
+                if getattr(filt, "blocked", 0):
+                    w_np, block_s = host_block_rows(filt.words, B)
+                else:
+                    w_np = np.asarray(filt.words)[:, : max(1, (B + 31) // 32)]
+                    block_s = 0
+                words = to_device(np.ascontiguousarray(w_np).view(np.int32),
+                                  self.device)
+                slack = getattr(filt, "slack_table", None)
+                if slack is not None:
+                    slack = to_device(np.asarray(slack, np.int32), self.device)
+                self._dev_filter = (words, block_s, slack)
+            return self._dev_filter
+
 
 def classify_reads(index: DreamIndex, batch: ReadBatch, opts: MapperOptions,
                    timers: StageTimers | None = None) -> np.ndarray:
-    """Candidate bin mask per read: (n_reads, n_bins) bool."""
+    """Candidate bin mask per read: (n_reads, n_bins) bool.
+
+    A read routes to a bin when either orientation passes the threshold
+    (canonical filters answer both from the forward row); filter none
+    routes every read to every bin. Each call classifies IBF_READS reads
+    on the device and fetches their packed mask: the one host sync of
+    routing, before any map step of the batch is queued."""
+    n, B = batch.n_reads, index.n_bins
     if index.filter_type == "none" or index.filter is None:
-        return np.ones((batch.n_reads, index.n_bins), dtype=bool)
-    raise _not_ported(f"the {index.filter_type!r} prefilter", 13)
+        return np.ones((n, B), dtype=bool)
+    filt = index.filter
+    words, block_s, slack = index.device_filter()
+    L = batch.max_len
+    kw = dict(L=L, k=filt.k, n_hashes=filt.n_hashes,
+              rate_ppm=rate_to_ppm(opts.error_rate),
+              window=getattr(filt, "window", 0),
+              canonical=bool(getattr(filt, "canonical", 0)),
+              blocked=bool(getattr(filt, "blocked", 0)),
+              direct=bool(getattr(filt, "direct", 0)), n_bins=B,
+              block_s=block_s)
+    mask = np.zeros((n, B), dtype=bool)
+    shifts = np.arange(32, dtype=np.uint32)
+    for c0 in range(0, n, IBF_READS):
+        # chunks are not padded to IBF_READS: rows are classified
+        # independently, so the mask is the same
+        ids = np.arange(c0, min(c0 + IBF_READS, n))
+        blob = pack_blob_with_lengths(batch.seqs[ids], batch.lengths[ids],
+                                      len(ids), L)
+        cw = ibf_classify_packed(words, to_device(blob.view(np.int32),
+                                                  index.device),
+                                 slack, half=len(ids), **kw)
+        cw = _Fetch(cw).result().view(np.uint32)
+        bits = ((cw[:, :, None] >> shifts) & 1).astype(bool)
+        mask[ids] = bits.reshape(len(ids), -1)[:, :B]
+    return mask
 
 
 def _sub_batch(batch: ReadBatch, ids: np.ndarray) -> ReadBatch:
@@ -113,9 +181,8 @@ def dis_map_batch_async(index: DreamIndex, batch: ReadBatch,
                         opts: MapperOptions,
                         timers: StageTimers | None = None):
     """Queue all per-bin device work for the batch; return a drain()
-    closure producing the merged global Matches."""
-    if batch.paired:
-        raise _not_ported("paired-end mapping", 10)
+    closure producing the merged global Matches. A paired batch maps its
+    mates as independent reads; pairing happens when it is finished."""
     timers = timers or StageTimers()
     with timers.stage("ibf classify"):
         routing = classify_reads(index, batch, opts, timers)
@@ -141,6 +208,42 @@ def dis_map_batch_async(index: DreamIndex, batch: ReadBatch,
         return Matches.concat(parts)
 
     return drain
+
+
+def _rescue_global(index: DreamIndex, batch: ReadBatch, ranked: Ranked,
+                   opts: MapperOptions, max_err: int, rate_ppm: int) -> Matches:
+    """Mate rescue with bin-aware anchors: each candidate's window is
+    verified in the bin its int64 global anchor falls in, after the bin
+    start is subtracted (then it fits int32). The batch's reads go to the
+    device once for all bins."""
+    cands = rescue_candidates(ranked, batch.n_reads, batch.lengths,
+                              opts.library_length, opts.library_deviation,
+                              band=max_err)
+    if len(cands.rows) == 0:
+        return Matches.concat([])
+    bin_of = np.searchsorted(index.contigs.bin_starts, cands.anchors,
+                             side="right") - 1
+    bin_of = np.clip(bin_of, 0, index.n_bins - 1)
+    parts = []
+    n = batch.n_reads
+    reads_d = to_device(batch.seqs, index.device)
+    lens_d = to_device(batch.lengths, index.device)
+    for b in np.unique(bin_of):
+        sel = bin_of == b
+        rows = cands.rows[sel]
+        anchors = (cands.anchors[sel]
+                   - int(index.contigs.bin_starts[b])).astype(np.int32)
+        bm = index.bin_mapper(int(b), opts)
+        for rb, mask, dist, beg, end in verify_padded(bm.dev, reads_d, lens_d,
+                                                      rows, anchors, max_err):
+            budget = (batch.lengths[rb % n] * rate_ppm) // 10_000
+            ok = mask & (dist <= budget) & (beg >= 0) & (end <= bm.fm.n)
+            mm = build_matches(rb, beg, end, dist, ok, n_reads=n)
+            off = int(index.contigs.bin_starts[b])
+            mm.begin += off
+            mm.end += off
+            parts.append(mm)
+    return Matches.concat(parts)
 
 
 def dream_map_stream(index: DreamIndex, batches, opts: MapperOptions,
@@ -224,14 +327,22 @@ def dream_map_sam(index: DreamIndex, batch: ReadBatch, opts: MapperOptions,
 def _finish_batch(index: DreamIndex, batch: ReadBatch, m: Matches,
                   opts: MapperOptions, cmdline: str, timers: StageTimers,
                   header: bool, stats: dict | None) -> bytes:
-    if batch.paired:
-        raise _not_ported("paired-end mapping", 10)
+    rate_ppm = rate_to_ppm(opts.error_rate)
     max_err = max(1, max_errors_for_batch(batch.max_len, opts.error_rate))
 
+    def finish(mm: Matches) -> Ranked:
+        ok = index.contigs.same_contig_span(mm.begin, mm.end)
+        return rank_matches(dedup_matches(mm.take(ok)), batch.n_reads,
+                            strata_count=opts.strata_count)
+
     with timers.stage("rank/dedup (host)"):
-        ok = index.contigs.same_contig_span(m.begin, m.end)
-        ranked: Ranked = rank_matches(dedup_matches(m.take(ok)), batch.n_reads,
-                                      strata_count=opts.strata_count)
+        ranked = finish(m)
+    if batch.paired and opts.rescue:
+        with timers.stage("mate rescue"):
+            rescued = _rescue_global(index, batch, ranked, opts, max_err,
+                                     rate_ppm)
+            if len(rescued):
+                ranked = finish(Matches.concat([m, rescued]))
     with timers.stage("cigar (host)"):
         rows = (ranked.matches.read_id +
                 ranked.matches.strand.astype(np.int32) * batch.n_reads)
@@ -239,13 +350,25 @@ def _finish_batch(index: DreamIndex, batch: ReadBatch, m: Matches,
                                 batch.lengths[ranked.matches.read_id],
                                 ranked.matches.begin, ranked.matches.end,
                                 max_err, dists=ranked.matches.dist)
+    pair_info = None
+    if batch.paired:
+        with timers.stage("select pairs (host)"):
+            pair_info = select_pairs(ranked, batch.n_reads, index.contigs,
+                                     opts.library_length,
+                                     opts.library_deviation)
     with timers.stage("sam write (host)"):
         head = (("\n".join(sam_header(index.contigs, cmdline,
                                        read_group=opts.read_group or None))
                  + "\n").encode() if header else b"")
-        body = write_se_records(batch, index.contigs, ranked, cigars,
-                                read_group=opts.read_group or None,
-                                secondary_mode=opts.secondary_matches)
+        if batch.paired:
+            body = write_pe_records(batch, index.contigs, ranked, cigars,
+                                    pair_info,
+                                    read_group=opts.read_group or None,
+                                    secondary_mode=opts.secondary_matches)
+        else:
+            body = write_se_records(batch, index.contigs, ranked, cigars,
+                                    read_group=opts.read_group or None,
+                                    secondary_mode=opts.secondary_matches)
 
     if stats is not None:
         with _STATS_LOCK:
@@ -253,4 +376,7 @@ def _finish_batch(index: DreamIndex, batch: ReadBatch, m: Matches,
             stats["mapped"] = stats.get("mapped", 0) + int((ranked.c1 > 0).sum())
             stats["unique"] = stats.get("unique", 0) + int(
                 ((ranked.c1 == 1) & (ranked.c2 == 0)).sum())
+            if pair_info is not None:
+                stats["proper_pairs"] = stats.get("proper_pairs", 0) + int(
+                    pair_info.proper.sum()) // 2
     return head + body

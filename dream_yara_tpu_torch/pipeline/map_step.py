@@ -19,7 +19,7 @@ import torch
 from ..ops.backward_search import gather_hits, seed_search
 from ..ops.banded_verify_cuda import banded_verify
 from ..ops.device_index import DeviceFM
-from ..ops.readpack import unpack_blob, unpack_reads
+from ..ops.readpack import int32_bits, unpack_blob, unpack_reads
 from .seeding import errors_for, make_seeds
 
 PAIR_BLOCK = 64   # pairwise_dedup compares all slot pairs up to this width
@@ -91,12 +91,6 @@ def unbundle_out(bundle: np.ndarray, seed_lo, seed_hi, overflow, m_start,
                       n_spilled=bundle[5 * cv + 1])
 
 
-def _to_int32_bits(v: torch.Tensor) -> torch.Tensor:
-    """int64 holding a uint32 bit pattern -> the int32 with the same bits."""
-    v = v & 0xFFFFFFFF
-    return (v - ((v >> 31) << 32)).to(torch.int32)
-
-
 def single_bin_map_step_packed(fm: DeviceFM, blob: torch.Tensor, *, half: int,
                                L: int, rate_ppm: int, max_errors: int,
                                capacity: int, max_slen: int,
@@ -117,7 +111,7 @@ def single_bin_map_step_packed(fm: DeviceFM, blob: torch.Tensor, *, half: int,
         delta = (out.end - out.begin).clamp(0, 255).long()
         meta = (out.row.long() | (out.dist.clamp(0, 31).long() << 18)
                 | (delta << 23) | (out.ok.long() << 31))
-        bundle = torch.cat([out.begin, _to_int32_bits(meta),
+        bundle = torch.cat([out.begin, int32_bits(meta),
                             out.overflow_total[None], out.n_spilled[None]])
     else:
         bundle = torch.cat([out.row, out.begin, out.end, out.dist,

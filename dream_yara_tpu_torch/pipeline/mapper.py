@@ -1,6 +1,7 @@
 """Single-bin mapper orchestration (counterpart of
 dream_yara_tpu/pipeline/mapper.py): chunk the batch, dispatch the map step
-of every chunk, then drain — fetch, spill fallbacks, host match tables.
+of every chunk, then drain — fetch, spill fallbacks, host match tables;
+and the single-bin paired-end pipeline (mate rescue, pair selection).
 
 Dispatch is asynchronous on a CUDA device: the step's kernels are queued on
 the current stream, and each chunk's bundle is copied to pinned host memory
@@ -17,7 +18,8 @@ import torch
 from .._shared import (FMIndex, GlobalContigs, Matches, MapperOptions, Ranked,
                        ReadBatch, SeqStore, StageTimers, build_matches,
                        compute_cigars, dedup_matches, rank_matches,
-                       sam_header, write_se_records)
+                       rescue_candidates, sam_header, select_pairs,
+                       write_pe_records, write_se_records)
 from ..ops.device_index import DeviceFM, to_device
 from ..ops.readpack import pack_blob_with_lengths
 from .map_step import (MapStepOut, max_seed_len_static,
@@ -53,6 +55,26 @@ def _not_ported(what: str, item: int):
         f"(ROADMAP Queue 1 item {item})")
 
 
+def verify_padded(dev: DeviceFM, reads_d: torch.Tensor, lens_d: torch.Tensor,
+                  rows: np.ndarray, anchors: np.ndarray, max_err: int):
+    """Verify explicit (row, anchor) candidates in calls of FALLBACK_PAD
+    lanes (the overflow pass and mate rescue). Yields, per call, the
+    padded host arrays (rows, mask, dist, begin, end); `mask` marks the
+    real lanes."""
+    device = reads_d.device
+    for b0 in range(0, len(rows), FALLBACK_PAD):
+        rb = rows[b0 : b0 + FALLBACK_PAD]
+        ab = anchors[b0 : b0 + FALLBACK_PAD]
+        padn = FALLBACK_PAD - len(rb)
+        mask = np.concatenate([np.ones(len(rb), bool), np.zeros(padn, bool)])
+        rb = np.concatenate([rb, np.zeros(padn, np.int32)])
+        ab = np.concatenate([ab, np.zeros(padn, np.int32)])
+        dist, beg, end = verify_positions(
+            dev, reads_d, lens_d, to_device(rb, device), to_device(ab, device),
+            to_device(mask, device), max_errors=max_err)
+        yield (rb, mask, *(_Fetch(x).result() for x in (dist, beg, end)))
+
+
 class BinMapper:
     """Maps read batches against ONE bin (local coordinates) on `device`."""
 
@@ -74,9 +96,8 @@ class BinMapper:
 
     def map_batch_async(self, batch: ReadBatch, capacity: int = 8):
         """Queue the batch's device work now; return a drain() closure that
-        waits, fetches and post-processes."""
-        if batch.paired:
-            raise _not_ported("paired-end mapping", 10)
+        waits, fetches and post-processes. The mates of a paired batch map
+        as independent reads."""
         opts = self.opts
         rate_ppm = rate_to_ppm(opts.error_rate)
         n = batch.n_reads
@@ -213,18 +234,8 @@ class BinMapper:
         reads_d = to_device(reads_c, self.device)
         lens_d = to_device(lens_c, self.device)
         parts = []
-        for b0 in range(0, len(rows), FALLBACK_PAD):
-            rb = rows[b0 : b0 + FALLBACK_PAD]
-            ab = anchors[b0 : b0 + FALLBACK_PAD]
-            padn = FALLBACK_PAD - len(rb)
-            mask = np.concatenate([np.ones(len(rb), bool), np.zeros(padn, bool)])
-            rb = np.concatenate([rb, np.zeros(padn, np.int32)])
-            ab = np.concatenate([ab, np.zeros(padn, np.int32)])
-            dist, beg, end = verify_positions(
-                self.dev, reads_d, lens_d, to_device(rb, self.device),
-                to_device(ab, self.device), to_device(mask, self.device),
-                max_errors=max_err)
-            dist, beg, end = (_Fetch(x).result() for x in (dist, beg, end))
+        for rb, mask, dist, beg, end in verify_padded(self.dev, reads_d, lens_d,
+                                                      rows, anchors, max_err):
             budget = (lens_c[np.clip(rb, 0, 2 * half - 1) % half] * rate_ppm) // 10_000
             ok = mask & (dist <= budget) & (beg >= 0) & (end <= self.fm.n)
             m = build_matches(rb, beg, end, dist, ok, n_reads=half)
@@ -257,11 +268,78 @@ def single_bin_sam(store: SeqStore, fm: FMIndex, batch: ReadBatch,
                    opts: MapperOptions, device: torch.device,
                    cmdline: str = "") -> bytes:
     if batch.paired:
-        raise _not_ported("paired-end mapping", 10)
+        return paired_bin_sam(store, fm, batch, opts, device, cmdline)
     ranked, cigars, contigs = map_single_bin(store, fm, batch, opts, device)
     return (("\n".join(sam_header(contigs, cmdline,
                                    read_group=opts.read_group or None))
              + "\n").encode()
             + write_se_records(batch, contigs, ranked, cigars,
+                               read_group=opts.read_group or None,
+                               secondary_mode=opts.secondary_matches))
+
+
+def rescue_mates(mapper: BinMapper, batch: ReadBatch, ranked: Ranked,
+                 opts: MapperOptions, max_err: int, rate_ppm: int) -> Matches:
+    """Mate rescue: verify unmapped mates in the insert window around their
+    mapped partner. Single-bin path: global and bin-local coordinates are
+    the same, so the int64 anchors narrow to int32 directly."""
+    cands = rescue_candidates(ranked, batch.n_reads, batch.lengths,
+                              opts.library_length, opts.library_deviation,
+                              band=max_err)
+    if len(cands.rows) == 0:
+        return Matches.concat([])
+    n = batch.n_reads
+    reads_d = to_device(batch.seqs, mapper.device)
+    lens_d = to_device(batch.lengths, mapper.device)
+    parts = []
+    for rb, mask, dist, beg, end in verify_padded(
+            mapper.dev, reads_d, lens_d, cands.rows,
+            cands.anchors.astype(np.int32), max_err):
+        budget = (batch.lengths[rb % n] * rate_ppm) // 10_000
+        ok = mask & (dist <= budget) & (beg >= 0) & (end <= mapper.fm.n)
+        parts.append(build_matches(rb, beg, end, dist, ok, n_reads=n))
+    return Matches.concat(parts)
+
+
+def map_paired_bin(store: SeqStore, fm: FMIndex, batch: ReadBatch,
+                   opts: MapperOptions, device: torch.device):
+    """Full single-bin PE pipeline: map both mates, rescue, pair, CIGARs."""
+    mapper = BinMapper(store, fm, opts, device)
+    m = mapper.map_batch(batch)
+    contigs = GlobalContigs.from_stores([store])
+    rate_ppm = rate_to_ppm(opts.error_rate)
+    max_err = max(1, max_errors_for_batch(batch.max_len, opts.error_rate))
+
+    def finish(mm: Matches) -> Ranked:
+        ok = contigs.same_contig_span(mm.begin, mm.end)
+        return rank_matches(dedup_matches(mm.take(ok)), batch.n_reads,
+                            strata_count=opts.strata_count)
+
+    ranked = finish(m)
+    if opts.rescue:
+        rescued = rescue_mates(mapper, batch, ranked, opts, max_err, rate_ppm)
+        if len(rescued):
+            ranked = finish(Matches.concat([m, rescued]))
+
+    pair_info = select_pairs(ranked, batch.n_reads, contigs,
+                             opts.library_length, opts.library_deviation)
+    rows = (ranked.matches.read_id +
+            ranked.matches.strand.astype(np.int32) * batch.n_reads)
+    cigars = compute_cigars(store.text, batch.seqs, rows,
+                            batch.lengths[ranked.matches.read_id],
+                            ranked.matches.begin, ranked.matches.end, max_err,
+                            dists=ranked.matches.dist)
+    return ranked, cigars, contigs, pair_info
+
+
+def paired_bin_sam(store: SeqStore, fm: FMIndex, batch: ReadBatch,
+                   opts: MapperOptions, device: torch.device,
+                   cmdline: str = "") -> bytes:
+    ranked, cigars, contigs, pair_info = map_paired_bin(store, fm, batch, opts,
+                                                        device)
+    return (("\n".join(sam_header(contigs, cmdline,
+                                   read_group=opts.read_group or None))
+             + "\n").encode()
+            + write_pe_records(batch, contigs, ranked, cigars, pair_info,
                                read_group=opts.read_group or None,
                                secondary_mode=opts.secondary_matches))

@@ -15,13 +15,14 @@ import torch
 
 import dream_yara_tpu.pipeline.mapper as jmapper
 from dream_yara_tpu.index.fmindex import FMIndex
+from dream_yara_tpu.index.ibf import InterleavedBloomFilter
 from dream_yara_tpu.io.readstore import ReadBatch
 from dream_yara_tpu.io.seqstore import SeqStore
 from dream_yara_tpu.pipeline import dis_mapper as jdm
 from dream_yara_tpu.utils.alphabet import revcomp
 from dream_yara_tpu.utils.options import MapperOptions
 from dream_yara_tpu.utils.timer import StageTimers
-from dream_yara_tpu_torch.ops import banded_verify_cuda
+from dream_yara_tpu_torch.ops import banded_verify_cuda, row_gather_cuda
 from dream_yara_tpu_torch.pipeline import dis_mapper as tdm
 from dream_yara_tpu_torch.pipeline import mapper as tmapper
 from tests.conftest import mutate, random_text
@@ -99,7 +100,7 @@ def test_dream_map_stream_byte_identical(db):
 def test_dream_index_load_byte_identical(db, tmp_path):
     """A database directory (the indexer's layout) loads in both packages;
     without a filter file the default "bloom" request maps with filter
-    none, and a present filter file needs the unported prefilter."""
+    none, and with one it routes through the prefilter."""
     rng, stores, fms = db
     (tmp_path / "bins").mkdir()
     for b, (st, fm) in enumerate(zip(stores, fms)):
@@ -111,9 +112,14 @@ def test_dream_index_load_byte_identical(db, tmp_path):
     want = jdm.dream_map_sam(jdm.DreamIndex.load(tmp_path), batch, opts)
     assert tdm.dream_map_sam(tdm.DreamIndex.load(tmp_path, device=CPU),
                              batch, opts) == want
-    (tmp_path / "db.filter.npz").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tdm.DreamIndex.load(tmp_path, device=CPU)
+    ibf = InterleavedBloomFilter.create(2, size_bits=1 << 22, n_hashes=3, k=19)
+    for b, st in enumerate(stores):
+        ibf.add_kmers(st.text, b)
+    ibf.save(tmp_path / "db.filter")
+    index = tdm.DreamIndex.load(tmp_path, device=CPU)
+    assert index.filter_type == "bloom" and index.filter.blocked == 1
+    assert tdm.dream_map_sam(index, batch, opts) == jdm.dream_map_sam(
+        jdm.DreamIndex.load(tmp_path), batch, opts)
 
 
 @pytest.fixture(scope="module")
@@ -167,17 +173,11 @@ def test_repetitive_pass_raises_not_implemented(tandem, monkeypatch):
 
 def test_unported_paths_raise(db):
     rng, stores, fms = db
-    batch = _batch(rng, stores, 4, "p")
-    pe = ReadBatch(batch.names, batch.seqs, batch.lengths, batch.quals, True)
-    index = tdm.DreamIndex(stores, fms, None, "none", device=CPU)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tdm.dream_map_sam(index, pe, MapperOptions())
-    bloom = tdm.DreamIndex(stores, fms, object(), "bloom", device=CPU)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tdm.dream_map_sam(bloom, batch, MapperOptions())
     with pytest.raises(NotImplementedError, match="item 11"):
         tmapper.BinMapper(stores[0], fms[0].subsample_sa(4), MapperOptions(), CPU)
-    assert banded_verify_cuda.kernel.launches == 0   # CPU runs never launch
+    # CPU runs never launch a kernel
+    assert banded_verify_cuda.kernel.launches == 0
+    assert row_gather_cuda.kernel.launches == 0
 
 
 _NO_JAX = """
@@ -186,7 +186,9 @@ sys.modules["jax"] = None
 import numpy as np
 import torch
 from dream_yara_tpu_torch.pipeline import dis_mapper as dm
-from dream_yara_tpu_torch._shared import FMIndex, MapperOptions, ReadBatch, SeqStore
+from dream_yara_tpu_torch._shared import (FMIndex, InterleavedBloomFilter,
+                                          MapperOptions, ReadBatch, SeqStore,
+                                          revcomp)
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
                if sys.modules[m] is not None)
 rng = np.random.default_rng(5)
@@ -198,6 +200,22 @@ batch = ReadBatch.from_reads(["a", "b"], [g[100:200].copy(), g[900:1000].copy()]
 sam = dm.dream_map_sam(index, batch, MapperOptions(error_rate=0.03)).decode()
 recs = [l.split("\\t") for l in sam.splitlines() if not l.startswith("@")]
 assert [r[3] for r in recs] == ["101", "901"], recs
+# a paired-end batch routed by a blocked bloom filter over two bins
+g2 = rng.integers(0, 4, 3000).astype(np.int8)
+stores = [store, SeqStore.from_seqs(["d"], [g2])]
+ibf = InterleavedBloomFilter.create(2, size_bits=1 << 22, n_hashes=3, k=19)
+for b, s in enumerate((g, g2)):
+    ibf.add_kmers(s, b)
+index = dm.DreamIndex(stores, [FMIndex.build(st.text) for st in stores], ibf,
+                      "bloom", device=torch.device("cpu"))
+mates = [g2[500:600].copy(), revcomp(g2[700:800].copy())]
+pe = ReadBatch.from_reads(["p", "p"], mates, paired=True)
+opts = MapperOptions(error_rate=0.03, library_length=300, library_deviation=50)
+assert dm.classify_reads(index, pe, opts).tolist() == [[False, True]] * 2
+sam = dm.dream_map_sam(index, pe, opts).decode()
+recs = [l.split("\\t") for l in sam.splitlines() if not l.startswith("@")]
+assert [(r[2], r[3], int(r[1]) & 0x2) for r in recs] == [
+    ("d", "501", 2), ("d", "701", 2)], recs
 print("NO_JAX_OK")
 """
 
