@@ -3,17 +3,17 @@
 
     python3 chip_smoke.py
 
-Drives the port's config-1 single-end path and its config-2 paired-end
-DREAM path once each, at full size, and fails (non-zero exit, no result
-line) on any error, when no CUDA device is present, or when the port cannot
-be imported. Phases:
+Drives the port's config-1 single-end path, its config-2 paired-end DREAM
+path and its repeat-rich path (sampled SA, repetitive re-seed strata) once
+each, at full size, and fails (non-zero exit, no result line) on any error,
+when no CUDA device is present, or when the port cannot be imported. Phases:
 
   1. card     — the card's name and power limit (nvidia-smi);
   2. build    — nvcc builds both kernels from csrc/ at once (ptxas lines);
   3. gather   — the row-gather kernel against its plain edition, exact
                 equality, at the probe shape of each TPU kernel it replaces,
-                at the config-2 path's shapes and on edge indices; both
-                times from CUDA events, in turns;
+                at the config-2 and repeat-rich paths' shapes and on edge
+                indices; both times from CUDA events, in turns;
   4. verify   — the banded-verify kernel against its plain edition at the
                 config-1 (L=100, E=3) and config-2 (L=150, E=4) shapes, at
                 L=250/E=12 and on edge lanes;
@@ -30,7 +30,16 @@ be imported. Phases:
                 dream_map_stream: both kernels launched, every read routed
                 to its bin, >= 99 % mapped; a 1,024-pair subsample gives
                 the same SAM bytes on the card and on the CPU;
-  8. result   — the kernel table and the device line as JSON.
+  8. rep-rich — one 32 Mbp repeat-rich bin at sample rate 8 with its
+                bidirectional sidecar, 100 bp reads half from repeat copies
+                (tools/bench_bidir_ab.py's workload) at the default options:
+                the sampled locate equal to the full SA, one repetitive
+                group per backend and budget identical on the card and on
+                the CPU, 4 x 25,000 reads streamed (>= 99 % mapped, both
+                backends' groups run), SAM identical on the sampled and the
+                full SA and between card and CPU, a profile of one group
+                per backend;
+  9. result   — the kernel table and the device line as JSON.
 
 Every number printed is measured in this run, on the card named beside it.
 """
@@ -62,16 +71,31 @@ C2_BATCH_PAIRS = 125_000
 C2_N_BATCHES = 4
 C2_SUB_PAIRS = 1_024
 
+RR_GENOME_LEN = 32_000_000   # tools/bench_bidir_ab.py's bin and reads
+RR_READ_LEN = 100
+RR_BATCH = 25_000
+RR_N_BATCHES = 4             # streamed once after one warm-up batch
+RR_LOCATE_ROWS = 1 << 20
+RR_SAM_READS = 2_048
+RR_CPU_READS = 256
+
 # (what, TPU kernel it replaces or None, rows, int32 words a row, queries,
 #  index dtype): the probe shape of each TPU kernel, then the config-2
 #  path's shapes: one rank trip of a 65,536-read chunk (2 rows x 5 seeds x
-#  2 bounds) and one classify chunk of block rows
+#  2 bounds) and one classify chunk of block rows; then the repeat-rich
+#  path's: one stratum-2 enumeration trip (2 bounds x 2,048 seeds x 1,129
+#  layouts) and one LF step of a chunk's locate walk (131,072 rows x 4
+#  seeds x 8 hits) over a 32 Mbp bin's fused rows
 GATHER_SHAPES = (
     ("_vmem_kernel probe", "tools/proto_pallas_rank.py:46", 36_000, 24, 1 << 20, "int32"),
     ("_dma_kernel probe", "tools/proto_pallas_rank.py:78", 36_000, 128, 1 << 20, "int32"),
     ("_ring_kernel probe", "tools/proto_probe_dma.py:64", 3_145_728, 128, 1_001_472, "int32"),
     ("config-2 fused rank rows", None, 45_314, 24, 1_310_720, "int32"),
     ("config-2 IBF block rows", None, 524_288, 64, 4_194_304, "int64"),
+    ("rep-rich stratum-2 trip", "tools/proto_pallas_rank.py:46", 250_002, 24,
+     4_624_384, "int32"),
+    ("rep-rich locate step", "tools/proto_pallas_rank.py:46", 250_002, 24,
+     4_194_304, "int32"),
 )
 
 
@@ -219,7 +243,8 @@ def phase_gather(card):
         if replaces is not None:
             entries.append({"name": "row_gather", "route": "cuda",
                             "source": "dream_yara_tpu_torch/csrc/row_gather.cu",
-                            "replaces": replaces, "ms": k1, "plain_ms": p1})
+                            "replaces": replaces, "shape": what,
+                            "ms": k1, "plain_ms": p1})
         del table, idx, got, want
     torch.cuda.empty_cache()
 
@@ -489,6 +514,7 @@ def phase_config1(store, fm, batches, card):
         raise AssertionError("stream SAM records differ from the subsample's")
     log(f"[config-1] golden model agrees on {GOLDEN_READS} reads (matches, c1, "
         f"c2), and the stream's records for them are identical")
+    return launches
 
 
 def build_config2():
@@ -664,6 +690,260 @@ def phase_config2(card):
     return launches
 
 
+def build_rep_rich():
+    """tools/bench_bidir_ab.py's bin and reads: a 32 Mbp repeat-rich genome
+    from default_rng(42) (1,600 diverged 300 bp interspersed copies, 64
+    tandem arrays, 16 N-runs), its FM index with the q = 10 prefix table
+    (the full SA kept for the checks, and the rate-8 sampled index the
+    bench maps with), the reverse fused rows, and 100 bp reads with up to
+    2 substitutions from default_rng(7), every other one from a repeat copy.
+    Returns (store, fm_full, fm8, rfused, batches, truth)."""
+    from dream_yara_tpu_torch._shared import (FMIndex, ReadBatch, SeqStore,
+                                              build_reverse_fused,
+                                              repeat_rich_genome, sample_reads)
+
+    t0 = time.perf_counter()
+    g, ann = repeat_rich_genome(np.random.default_rng(42), RR_GENOME_LEN,
+                                alu_count=RR_GENOME_LEN // 20_000,
+                                tandem_loci=RR_GENOME_LEN // 500_000,
+                                n_runs=RR_GENOME_LEN // 2_000_000)
+    store = SeqStore.from_seqs(["rich"], [g])
+    t1 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=1) as ex:
+        reverse = ex.submit(build_reverse_fused, store.text)
+        fm_full = FMIndex.build(store.text, prefix_q=10)
+        rfused = reverse.result()[0]
+    fm8 = fm_full.subsample_sa(8)
+    t2 = time.perf_counter()
+    n_reads = (RR_N_BATCHES + 1) * RR_BATCH
+    reads, truth = sample_reads(np.random.default_rng(7), store.text[:-1],
+                                n_reads, read_len=RR_READ_LEN, n_sub=2,
+                                regions=ann["alu"] + ann["tandem"])
+    batches = [ReadBatch.from_reads([f"r{i}" for i in range(b0, b0 + RR_BATCH)],
+                                    reads[b0 : b0 + RR_BATCH])
+               for b0 in range(0, n_reads, RR_BATCH)]
+    log(f"[rep-rich] genome {RR_GENOME_LEN} bp in {t1 - t0:.1f} s; FM index "
+        f"(q={fm_full.prefix_q}, sample rate {fm8.sample_rate}: "
+        f"{len(fm8.sa)} samples) and reverse rows in {t2 - t1:.1f} s; "
+        f"{n_reads} reads in {time.perf_counter() - t2:.1f} s (host)")
+    return store, fm_full, fm8, rfused, batches, truth
+
+
+def planted_share(sams, truth) -> float:
+    """Share of SAM records whose read's planted site is the primary
+    position or one of its XA alternatives."""
+    found = total = 0
+    for sam in sams:
+        for line in sam.split(b"\n"):
+            if not line or line[:1] == b"@":
+                continue
+            f = line.split(b"\t")
+            pos = {int(f[3])}
+            for tag in f[11:]:
+                if tag.startswith(b"XA:Z:"):
+                    pos |= {int(a.split(b",")[1][1:])
+                            for a in tag[5:].split(b";") if a}
+            found += truth[int(f[0][1:])][0] + 1 in pos
+            total += 1
+    return found / total
+
+
+def phase_rep_rich(card):
+    """The repeat-rich path on the card; returns the stream's launches."""
+    import torch
+
+    from dream_yara_tpu_torch._shared import MapperOptions, StageTimers
+    from dream_yara_tpu_torch.ops.device_index import DeviceFM, to_device
+    from dream_yara_tpu_torch.ops.locate import locate_sampled_fused
+    from dream_yara_tpu_torch.ops.readpack import pack_blob_with_lengths
+    from dream_yara_tpu_torch.pipeline.dis_mapper import (DreamIndex,
+                                                          dream_map_sam,
+                                                          dream_map_stream)
+    from dream_yara_tpu_torch.pipeline.map_step import (
+        max_rep_seed_len_static, max_seed_len_static, repetitive_map_step,
+        single_bin_map_step_packed, uniform_len_ok)
+    from dream_yara_tpu_torch.pipeline.mapper import CHUNK_SIZES, BinMapper
+    from dream_yara_tpu_torch.pipeline.seeding import (max_errors_for_batch,
+                                                       rate_to_ppm)
+
+    log(f"[rep-rich] cuts: {RR_N_BATCHES} x {RR_BATCH} reads streamed once "
+        f"after a {RR_BATCH}-read warm-up (the bench streams 200,000 reads x 5 "
+        f"passes); the product-default mode only (the bench runs 4: enum and "
+        f"bidir, indels on and off)")
+    store, fm_full, fm8, rfused, batches, truth = build_rep_rich()
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    dev8 = DeviceFM.from_host(fm8, store.text, dev, rfused=rfused)
+    n = fm8.n
+
+    # 1. the sampled locate against the full SA
+    g = torch.Generator(device=dev).manual_seed(8)
+    rows = torch.cat([torch.tensor([0, n - 1], dtype=torch.int32, device=dev),
+                      torch.randint(0, n, (RR_LOCATE_ROWS,), generator=g,
+                                    dtype=torch.int32, device=dev)])
+    locate = lambda: locate_sampled_fused(dev8.fused, dev8.counts,
+                                          dev8.sa_mark_bits, dev8.sa_rank_ck,
+                                          dev8.sa, rows, fm8.sample_rate)
+    got = locate().cpu().numpy()
+    if not np.array_equal(got, fm_full.sa[rows.cpu().numpy()]):
+        raise AssertionError("the sampled locate differs from the full SA")
+    log(f"[rep-rich] locate: {len(got)} SA rows (first, last, 2^20 random) "
+        f"on the rate-8 SA equal the full SA; {cuda_time_ms(locate, 5)} ms a "
+        f"call ({card})")
+
+    # 2. one group of overflowing rows, four ways, card against CPU
+    opts = MapperOptions(error_rate=ERROR_RATE)
+    L, rate_ppm = RR_READ_LEN, rate_to_ppm(ERROR_RATE)
+    max_err = max(1, max_errors_for_batch(L, ERROR_RATE))
+    batch = batches[0]
+    nb = batch.n_reads
+    chunk_rows = next(cs for cs in CHUNK_SIZES if 2 * nb <= cs)
+    half = chunk_rows // 2
+    lens_c = np.zeros(half, np.int32)
+    lens_c[:nb] = batch.lengths
+    blob = to_device(pack_blob_with_lengths(batch.seqs[:nb], lens_c, half,
+                                            L).view(np.int32), dev)
+    step_kw = dict(half=half, L=L, rate_ppm=rate_ppm, max_errors=max_err,
+                   capacity=8, max_slen=max_seed_len_static(L, rate_ppm),
+                   prefix_q=fm8.prefix_q, compact_cap=chunk_rows,
+                   uniform_len=uniform_len_ok(batch.lengths, L, rate_ppm,
+                                              max_err))
+    step = lambda: single_bin_map_step_packed(
+        dev8, blob, sample_rate=fm8.sample_rate, **step_kw)
+    ovf = step()[3].cpu().numpy().reshape(chunk_rows, max_err + 1)
+    over = np.flatnonzero(ovf.sum(axis=1) > 0).astype(np.int32)
+    K = BinMapper.REP_PAD
+    rb = np.zeros(K, np.int32)
+    rb[: min(K, len(over))] = over[:K]
+    mask = np.arange(K) < len(over)
+    reads_c = np.full((chunk_rows, L), 4, np.int8)
+    reads_c[:nb] = batch.seqs[:nb]
+    reads_c[half : half + nb] = batch.seqs[nb:]
+    log(f"[rep-rich] first batch: {len(over)} of {2 * nb} seq rows overflow "
+        f"seed capacity ({100 * len(over) / (2 * nb):.2f} %); group of {K} "
+        f"rows, {int(mask.sum())} real")
+    msl = max_rep_seed_len_static(L, rate_ppm)
+    group_in = {where: (dfm, *(to_device(a, d) for a in (reads_c, lens_c, rb, mask)))
+                for where, d, dfm in (
+                    ("card", dev, dev8),
+                    ("cpu", cpu, DeviceFM.from_host(fm8, store.text, cpu,
+                                                    rfused=rfused)))}
+    ways = {}
+    for backend, budget, indels, t_max in (
+            ("enum", 1, True, min(msl, BinMapper.REP1_T)),
+            ("enum", 2, False, min(msl, BinMapper.REP2_T)),
+            ("bidir", 1, False, min(msl, BinMapper.REP1_T)),
+            ("bidir", 2, False, min(msl, BinMapper.REP2_T))):
+        kw = dict(rate_ppm=rate_ppm, max_errors=max_err, capacity=4,
+                  max_slen_rep=t_max, budget=budget, indels=indels,
+                  backend=backend, sample_rate=fm8.sample_rate)
+        ways[(backend, budget)] = kw
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        on_card = [x.cpu().numpy() for x in repetitive_map_step(*group_in["card"], **kw)]
+        t_card = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        on_cpu = [x.numpy() for x in repetitive_map_step(*group_in["cpu"], **kw)]
+        t_cpu = time.perf_counter() - t0
+        names = ["row", "begin", "end", "dist", "ok", "n_spilled"]
+        diff = [nm for nm, a, b in zip(names, on_card, on_cpu)
+                if a.dtype != b.dtype or not np.array_equal(a, b)]
+        if diff:
+            raise AssertionError(f"repetitive group {backend}/{budget}: card and "
+                                 f"CPU differ in {diff}")
+        log(f"[rep-rich] group {backend}, budget {budget}, indels {indels}, "
+            f"window {t_max}: card and CPU identical (row, begin, end, dist, "
+            f"ok, n_spilled); {int(on_card[4].sum())} ok lanes, n_spilled "
+            f"{int(on_card[5])}; card {t_card:.3f} s, CPU {t_cpu:.1f} s (host "
+            f"clock); peak device memory {peak} bytes ({peak / 2**20:.1f} MiB) "
+            f"({card})")
+    for key in (("enum", 1), ("bidir", 2)):
+        profile_step(f"rep-rich repetitive group ({key[0]}, budget {key[1]})",
+                     lambda: repetitive_map_step(*group_in["card"], **ways[key]),
+                     card)
+    dev_full = DeviceFM.from_host(fm_full, store.text, dev)
+    step_full = lambda: single_bin_map_step_packed(dev_full, blob, **step_kw)
+    log(f"[rep-rich] map-step chunk ({nb} reads, {chunk_rows} rows): "
+        f"{cuda_time_ms(step, 3)} ms at sample rate {fm8.sample_rate}, "
+        f"{cuda_time_ms(step_full, 3)} ms on the full SA ({card})")
+    del dev_full
+    profile_step(f"rep-rich map-step chunk ({nb} reads, sample rate 8)", step, card)
+    del group_in, blob
+
+    # 3. the stream
+    index = DreamIndex([store], [fm8], None, "none", device=dev,
+                       rfused={0: rfused})
+    t0 = time.perf_counter()
+    dream_map_sam(index, batches[0], opts, header=False)    # upload, warm-up
+    torch.cuda.synchronize()
+    log(f"[rep-rich] warm-up batch (index upload + first batch): "
+        f"{time.perf_counter() - t0:.3f} s")
+    n_total = RR_N_BATCHES * RR_BATCH
+    timers = StageTimers()
+    stats: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    sams = list(dream_map_stream(index, iter(batches[1:]), opts, timers=timers,
+                                 stats=stats))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    groups = {k: v for k, v in timers.counts.items()
+              if k.startswith("repetitive stratum")}
+    n_groups = {b: sum(v for k, v in groups.items() if f"({b})" in k)
+                for b in ("enum", "bidir")}
+    log(f"[rep-rich] {n_total} reads in {wall:.3f} s = {n_total / wall:.1f} "
+        f"reads/s ({card}); mapped {stats['mapped']} "
+        f"({100 * stats['mapped'] / n_total:.3f} %), unique {stats['unique']}; "
+        f"planted site among the reported matches for "
+        f"{100 * planted_share(sams, truth):.3f} % of reads")
+    log(f"[rep-rich] peak device memory {peak} bytes ({peak / 2**20:.1f} MiB) ({card})")
+    log(f"[rep-rich] stage timers ({card}):\n{timers.report()}")
+    log(f"[rep-rich] repetitive groups by stratum and backend: {groups}; "
+        f"kernel launches in the stream: {launches}")
+    if stats["mapped"] < 0.99 * n_total:
+        raise AssertionError(f"only {stats['mapped']} of {n_total} reads mapped")
+    if timers.totals.get("repetitive re-seed (device)", 0) <= 0:
+        raise AssertionError("the repetitive re-seed pass did not run")
+    if min(n_groups.values()) == 0:
+        raise AssertionError(f"a seed backend ran no group: {n_groups}")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"the rep-rich stream skipped a kernel: {launches}")
+
+    # 4. SAM: sampled against full SA, and card against CPU
+    sub = sub_batch(batches[1], np.arange(RR_SAM_READS))
+    sam8 = dream_map_sam(index, sub, opts, cmdline="rep-rich")
+    full = DreamIndex([store], [fm_full], None, "none", device=dev,
+                      rfused={0: rfused})
+    if dream_map_sam(full, sub, opts, cmdline="rep-rich") != sam8:
+        raise AssertionError("rep-rich SAM differs between the rate-8 and the "
+                             "full SA")
+    del full
+    log(f"[rep-rich] {RR_SAM_READS}-read subsample: SAM identical on the rate-8 "
+        f"and the full SA, both on the card ({len(sam8)} bytes)")
+    # sample_reads draws every even read from a repeat copy
+    sub = sub_batch(batches[1], np.arange(0, 2 * RR_CPU_READS, 2))
+    card_timers = StageTimers()
+    card_sam = dream_map_sam(index, sub, opts, cmdline="rep-rich",
+                             timers=card_timers)
+    t0 = time.perf_counter()
+    cpu_index = DreamIndex([store], [fm8], None, "none", device=cpu,
+                           rfused={0: rfused})
+    if dream_map_sam(cpu_index, sub, opts, cmdline="rep-rich") != card_sam:
+        raise AssertionError("rep-rich repeat-region SAM differs between the "
+                             "card and the CPU")
+    rep_groups = {k: v for k, v in card_timers.counts.items()
+                  if k.startswith("repetitive stratum")}
+    log(f"[rep-rich] {RR_CPU_READS} repeat-region reads: SAM identical on the "
+        f"card and on the CPU ({len(card_sam)} bytes; groups {rep_groups}; CPU "
+        f"run {time.perf_counter() - t0:.1f} s)")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -711,13 +991,20 @@ def main() -> int:
     log(f"[config-1] simulated {N_BATCHES} x {BATCH} reads in "
         f"{time.perf_counter() - t0:.1f} s")
     phase_chunk("config-1", store, fm, batches[0], READ_LEN, ERROR_RATE, card)
-    phase_config1(store, fm, batches, card)
+    by_path = {"config-1": phase_config1(store, fm, batches, card)}
     del full, batches
 
-    launches = phase_config2(card)
-    verify_entry["launches"] = launches["banded_verify"]
+    by_path["config-2"] = phase_config2(card)
+    by_path["rep-rich"] = phase_rep_rich(card)
+    # `launches` is each entry's own path's count: the repeat-rich shapes
+    # that path's, the others config-2's
+    verify_entry["launches"] = by_path["config-2"]["banded_verify"]
     for e in gather_entries:
-        e["launches"] = launches["row_gather"]
+        path = "rep-rich" if e["shape"].startswith("rep-rich") else "config-2"
+        e["launches"] = by_path[path]["row_gather"]
+    for e in (verify_entry, *gather_entries):
+        key = "row_gather" if e["name"] == "row_gather" else "banded_verify"
+        e["launches_by_path"] = {p: c[key] for p, c in by_path.items()}
     log(f"[done] smoke run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [verify_entry, *gather_entries]}), flush=True)
     print(json.dumps({"ok": True, "device": {

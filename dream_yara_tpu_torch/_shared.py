@@ -14,6 +14,11 @@ process still finds `BinMapper`, `map_single_bin` and the rest. A lazy
 `pipeline/__init__.py` in the reference would make this shim unnecessary
 (ROADMAP, Queue 1).
 
+`build_reverse_fused` (index/bifm.py) takes `build_fused_rank_rows` from
+the reference's ops/rank.py, a JAX module; where that module is not loaded,
+the call lends it the port's numpy copy (ops/rank.py), so building a
+bidirectional sidecar imports no JAX.
+
 Every port module takes shared host names from here.
 """
 
@@ -22,6 +27,7 @@ from __future__ import annotations
 import importlib
 import importlib.util
 import sys
+import types
 from pathlib import Path
 
 import dream_yara_tpu
@@ -67,6 +73,7 @@ _install_pipeline_package()
 
 # ruff: noqa: E402 — the imports below need the package installed above
 from dream_yara_tpu.golden.golden_mapper import golden_map_se
+from dream_yara_tpu.index import bifm as _bifm
 from dream_yara_tpu.index.fmindex import BLOCK, FMIndex
 from dream_yara_tpu.index.hashing import BLOCK_WORDS, HASH_SEEDS, MIX_MULT
 from dream_yara_tpu.index.ibf import InterleavedBloomFilter
@@ -81,13 +88,40 @@ from dream_yara_tpu.pipeline.writer import (GlobalContigs, sam_header,
                                             write_pe_records, write_se_records)
 from dream_yara_tpu.utils.alphabet import revcomp
 from dream_yara_tpu.utils.options import MapperOptions
+from dream_yara_tpu.utils.simulate import repeat_rich_genome, sample_reads
 from dream_yara_tpu.utils.timer import StageTimers
+
+_RANK = "dream_yara_tpu.ops.rank"
+
+
+def build_reverse_fused(text, tmp_dir: str | None = None):
+    """index/bifm.py::build_reverse_fused: (rfused, rcounts) of reverse(text).
+
+    When the reference's ops/rank.py is not loaded, a stand-in module that
+    holds only the port's `build_fused_rank_rows` (the same numpy code)
+    answers its import for the length of the call. Nothing in the port
+    imports that module, so no other import can meet the stand-in."""
+    if _RANK in sys.modules:
+        return _bifm.build_reverse_fused(text, tmp_dir=tmp_dir)
+    from .ops.rank import build_fused_rank_rows
+
+    stand_in = types.ModuleType(_RANK)
+    stand_in.build_fused_rank_rows = build_fused_rank_rows
+    sys.modules[_RANK] = stand_in
+    try:
+        return _bifm.build_reverse_fused(text, tmp_dir=tmp_dir)
+    finally:
+        if sys.modules.get(_RANK) is stand_in:
+            del sys.modules[_RANK]
+
 
 __all__ = [
     "BLOCK", "BLOCK_WORDS", "DirectKmerFilter", "FMIndex", "GlobalContigs",
     "HASH_SEEDS", "InterleavedBloomFilter", "MIX_MULT", "MapperOptions",
     "Matches", "Ranked", "ReadBatch", "SeqStore", "StageTimers",
-    "build_matches", "compute_cigars", "dedup_matches", "golden_map_se",
-    "rank_matches", "rescue_candidates", "revcomp", "sam_header",
-    "select_pairs", "write_pe_records", "write_se_records",
+    "build_matches", "build_reverse_fused", "compute_cigars",
+    "dedup_matches", "golden_map_se",
+    "rank_matches", "repeat_rich_genome", "rescue_candidates", "revcomp",
+    "sample_reads", "sam_header", "select_pairs", "write_pe_records",
+    "write_se_records",
 ]

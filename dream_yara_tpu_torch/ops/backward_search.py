@@ -1,5 +1,6 @@
 """Batched exact backward search of seeds in one bin's FM index (counterpart
-of dream_yara_tpu/ops/backward_search.py: seed_search and gather_hits).
+of dream_yara_tpu/ops/backward_search.py: seed_search, gather_hits and
+gather_hit_rows).
 
 All seeds advance in lockstep back-to-front; each trip issues 2S rank
 queries (lo and hi bounds in one call). Dead and finished seeds are masked,
@@ -90,6 +91,16 @@ def seed_search(fused: torch.Tensor, counts: torch.Tensor, n,
     matched = consumed0 + (slens - consumed0).clamp(0, max_seed_len)
     m_start = starts + slens - matched
     return lo, torch.maximum(lo, hi), m_start
+
+
+def gather_hit_rows(lo: torch.Tensor, hi: torch.Tensor, capacity: int):
+    """Like gather_hits, but returns SA ROW indices (0 where ~mask) for a
+    sampled SA: the caller locates them (ops/locate.py)."""
+    offs = torch.arange(capacity, device=lo.device, dtype=torch.int32)
+    rows = lo[:, None] + offs[None, :]
+    mask = rows < hi[:, None]
+    overflow = (hi - lo - capacity).clamp(min=0)
+    return torch.where(mask, rows, 0), mask, overflow
 
 
 def gather_hits(sa: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,

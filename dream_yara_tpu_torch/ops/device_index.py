@@ -1,8 +1,7 @@
 """Device-resident FM index of one bin (counterpart of
-dream_yara_tpu/ops/device_index.py::DeviceFM).
-
-Full-SA layout only: the sampled-SA fields and the reverse rank rows of the
-bidirectional index come with their ROADMAP items (Queue 1, items 11 and 12).
+dream_yara_tpu/ops/device_index.py::DeviceFM): the host index (numpy)
+carried onto `device` as torch tensors, with the sampled-SA fields of a
+sampled index and the reverse fused rows of a bidirectional one.
 """
 
 from __future__ import annotations
@@ -32,20 +31,25 @@ class DeviceFM(NamedTuple):
     bwt_blocks: torch.Tensor       # (n_blocks, 128) int8
     occ: torch.Tensor              # (n_blocks + 1, SIGMA) int32
     counts: torch.Tensor           # (SIGMA + 1,) int32
-    sa: torch.Tensor               # (n,) int32 full SA
+    sa: torch.Tensor               # (n,) int32 full SA, or the sampled values
     text: torch.Tensor             # (n,) int8 — verification windows read this
     n: torch.Tensor                # () int32 text length
     pfx_lo: torch.Tensor | None    # (4^q,) int32 q-mer interval table
     pfx_hi: torch.Tensor | None
     fused: torch.Tensor            # (n_blocks + 1, 24) int32 fused rank rows
+    # sampled SA (sample_rate > 1): `sa` holds the sampled values in mark
+    # order; locate walks LF to a marked row (ops/locate.py)
+    sa_mark_bits: torch.Tensor | None = None  # (nw,) uint32 words as int32, nw % 4 == 0
+    sa_rank_ck: torch.Tensor | None = None    # (ceil(n/128) + 1,) int32
+    # bidirectional index: fused rank rows of the reversed text (its C
+    # table equals `counts`), for the search-scheme seed backend
+    rfused: torch.Tensor | None = None        # (n_blocks + 1, 24) int32
 
     @classmethod
-    def from_host(cls, fm: FMIndex, text: np.ndarray,
-                  device: torch.device) -> "DeviceFM":
-        if fm.sample_rate > 1:
-            raise NotImplementedError(
-                "sampled-SA indexes are not ported yet (ROADMAP Queue 1 item 11)")
-        put = lambda a: to_device(np.asarray(a), device)
+    def from_host(cls, fm: FMIndex, text: np.ndarray, device: torch.device,
+                  rfused: np.ndarray | None = None) -> "DeviceFM":
+        put = lambda a: None if a is None else to_device(np.asarray(a), device)
+        sampled = fm.sample_rate > 1
         return cls(
             bwt_blocks=put(fm.bwt_blocks),
             occ=put(fm.occ),
@@ -53,7 +57,11 @@ class DeviceFM(NamedTuple):
             sa=put(fm.sa),
             text=put(np.asarray(text, dtype=np.int8)),
             n=put(np.asarray(fm.n, dtype=np.int32)),
-            pfx_lo=None if fm.pfx_lo is None else put(fm.pfx_lo),
-            pfx_hi=None if fm.pfx_hi is None else put(fm.pfx_hi),
+            pfx_lo=put(fm.pfx_lo),
+            pfx_hi=put(fm.pfx_hi),
             fused=put(build_fused_rank_rows(fm.bwt_blocks, fm.occ)),
+            sa_mark_bits=(put(np.asarray(fm.sa_mark_bits, np.uint32).view(np.int32))
+                          if sampled else None),
+            sa_rank_ck=put(fm.sa_rank_ck) if sampled else None,
+            rfused=put(rfused),
         )

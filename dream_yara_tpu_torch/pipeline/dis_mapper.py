@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import json
 import os
+import sys
 import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -49,7 +50,8 @@ class DreamIndex:
     the first classify."""
 
     def __init__(self, stores: list[SeqStore], fms: list[FMIndex], filt,
-                 filter_type: str = "bloom", *, device: torch.device):
+                 filter_type: str = "bloom", *, device: torch.device,
+                 rfused: dict[int, np.ndarray] | None = None):
         self.stores = stores
         self.fms = fms
         self.filter = filt
@@ -59,6 +61,8 @@ class DreamIndex:
         self.global_text = np.concatenate([st.text for st in stores])
         self._bin_mappers: dict[int, BinMapper] = {}
         self._dev_filter = None
+        # per-bin reverse-text rank rows (the indexer's --bidir sidecars)
+        self.rfused = rfused or {}
         # the device worker and the finisher threads (mate rescue) both
         # create bin mappers and may both reach the filter
         self._lock = threading.Lock()
@@ -70,22 +74,31 @@ class DreamIndex:
     @classmethod
     def load(cls, db_dir, filter_type: str = "bloom", *,
              device: torch.device) -> "DreamIndex":
-        """Per-bin stores and FM indexes of a database directory and the
-        requested prefilter. As in the reference, a missing filter file
-        means filter `none`. Bidirectional sidecars serve only the
-        repetitive pass and are not read."""
+        """Per-bin stores, FM indexes and bidirectional sidecars (`.rfm`) of
+        a database directory, and the requested prefilter. As in the
+        reference, a missing filter file means filter `none`, and a sidecar
+        whose row count does not fit its bin's index is stale and ignored."""
         db_dir = Path(db_dir)
         meta = json.loads((db_dir / "meta.json").read_text())
-        stores = [SeqStore.load(bin_file(db_dir, b, "store"))
-                  for b in range(meta["n_bins"])]
-        fms = [FMIndex.load(bin_file(db_dir, b, "fm"))
-               for b in range(meta["n_bins"])]
+        stores, fms, rfused = [], [], {}
+        for b in range(meta["n_bins"]):
+            stores.append(SeqStore.load(bin_file(db_dir, b, "store")))
+            fms.append(FMIndex.load(bin_file(db_dir, b, "fm")))
+            rp = bin_file(db_dir, b, "rfm")
+            if rp.exists():
+                rf = np.load(rp)["rfused"]
+                if rf.shape[0] == fms[-1].bwt_blocks.shape[0] + 1:
+                    rfused[b] = rf
+                else:
+                    print(f"[dream] ignoring stale bidir sidecar {rp}",
+                          file=sys.stderr)
         filt = None
         if filter_type == "bloom" and (db_dir / "db.filter.npz").exists():
             filt = InterleavedBloomFilter.load(db_dir / "db.filter")
         elif filter_type == "kmer_direct" and (db_dir / "db.kdx.npz").exists():
             filt = DirectKmerFilter.load(db_dir / "db.kdx")
-        return cls(stores, fms, filt, filter_type, device=device)
+        return cls(stores, fms, filt, filter_type, device=device,
+                   rfused=rfused)
 
     def bin_mapper(self, b: int, opts: MapperOptions,
                    timers: StageTimers | None = None) -> BinMapper:
@@ -93,7 +106,8 @@ class DreamIndex:
             if b not in self._bin_mappers:
                 self._bin_mappers[b] = BinMapper(self.stores[b], self.fms[b],
                                                  opts, self.device,
-                                                 timers=timers)
+                                                 timers=timers,
+                                                 rfused=self.rfused.get(b))
             bm = self._bin_mappers[b]
         if timers is not None:
             bm.timers = timers

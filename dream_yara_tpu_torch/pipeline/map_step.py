@@ -4,9 +4,13 @@ verify (counterpart of dream_yara_tpu/pipeline/map_step.py).
 PyTorch runs eagerly, so there is no jit and no static-shape contract, but
 the chunk shapes of the reference are kept because they bound device
 memory. The step never reads a device value on the host: every stage is
-masked tensor work, and only the caller's drain synchronises. Full-SA
-indexes only (sampled SA: ROADMAP Queue 1 item 11); the mesh fetch hooks of
-the reference come with its multi-bin items.
+masked tensor work, and only the caller's drain synchronises. On a sampled
+SA the hits are located by the LF walk (ops/locate.py). The mesh fetch
+hooks of the reference come with its multi-bin items.
+
+`repetitive_map_step` is the re-seed of rows whose exact seeds overflowed
+(sensitivity high/low). It compacts its valid hit lanes before locating
+them, so it waits on the device once per call, as its caller does anyway.
 """
 
 from __future__ import annotations
@@ -16,9 +20,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops.backward_search import gather_hits, seed_search
+from ..ops.approx_search import seed_search_edits
+from ..ops.backward_search import gather_hit_rows, gather_hits, seed_search
 from ..ops.banded_verify_cuda import banded_verify
+from ..ops.bidir_search import bidir_seed_search
 from ..ops.device_index import DeviceFM
+from ..ops.locate import locate_sampled_fused
 from ..ops.readpack import int32_bits, unpack_blob, unpack_reads
 from .seeding import errors_for, make_seeds
 
@@ -47,6 +54,15 @@ def max_seed_len_static(max_len: int, rate_ppm: int) -> int:
     for l in range(1, max_len + 1):
         e = (l * rate_ppm) // 10_000
         best = max(best, l // (e + 1))
+    return best
+
+
+def max_rep_seed_len_static(max_len: int, rate_ppm: int) -> int:
+    """Bound on the long seeds of the repetitive path (ceil((E+1)/2) a read)."""
+    best = 1
+    for l in range(1, max_len + 1):
+        e = (l * rate_ppm) // 10_000
+        best = max(best, l // max(1, (e + 2) // 2))
     return best
 
 
@@ -96,7 +112,8 @@ def single_bin_map_step_packed(fm: DeviceFM, blob: torch.Tensor, *, half: int,
                                capacity: int, max_slen: int,
                                verify_capacity: int | None = None,
                                compact_cap: int | None = None,
-                               prefix_q: int = 0, uniform_len: bool = False):
+                               prefix_q: int = 0, uniform_len: bool = False,
+                               sample_rate: int = 1):
     """Packed-upload entry: `blob` is pack_blob_with_lengths output held as
     int32 on the device. Returns (bundle, seed_lo, seed_hi, overflow,
     m_start): every per-candidate output and the two scalars in ONE int32
@@ -105,7 +122,7 @@ def single_bin_map_step_packed(fm: DeviceFM, blob: torch.Tensor, *, half: int,
     reads = unpack_reads(packed, nmask, lengths, L)
     out = _map_step_core(fm, reads, lengths, rate_ppm, max_errors, capacity,
                          max_slen, verify_capacity, compact_cap, prefix_q,
-                         uniform_len)
+                         uniform_len, sample_rate)
     if _meta_packable(L, max_errors, half * 2):
         # (row, dist, end-begin, ok) bit-packed into one word next to begin
         delta = (out.end - out.begin).clamp(0, 255).long()
@@ -141,7 +158,7 @@ def _uniform_seed_chars(reads, L, rate_ppm, max_errors, t_stop, msl_eff):
 
 def _map_step_core(fm: DeviceFM, reads, lengths, rate_ppm, max_errors, capacity,
                    max_slen, verify_capacity, compact_cap, prefix_q,
-                   uniform_len=False) -> MapStepOut:
+                   uniform_len=False, sample_rate: int = 1) -> MapStepOut:
     R2, L = reads.shape
     rows, starts, slens = make_seeds(lengths, R2, rate_ppm, max_errors)
     # truncated search: match only each seed's last t_stop chars
@@ -156,7 +173,16 @@ def _map_step_core(fm: DeviceFM, reads, lengths, rate_ppm, max_errors, capacity,
                                   starts_eff, slens_eff, msl_eff,
                                   pfx_lo=fm.pfx_lo, pfx_hi=fm.pfx_hi,
                                   prefix_q=prefix_q, chars_fe=chars_fe)
-    pos, hmask, overflow = gather_hits(fm.sa, lo, hi, capacity)
+    if sample_rate > 1:
+        # sampled SA: hit rows, then the LF walk to marked rows on the fused
+        # rows (the raw bwt/occ walk lost matches in the reference, map_step.py)
+        sa_rows, hmask, overflow = gather_hit_rows(lo, hi, capacity)
+        pos = locate_sampled_fused(
+            fm.fused, fm.counts, fm.sa_mark_bits, fm.sa_rank_ck, fm.sa,
+            sa_rows.reshape(-1), sample_rate,
+            valid=hmask.reshape(-1)).reshape(sa_rows.shape)
+    else:
+        pos, hmask, overflow = gather_hits(fm.sa, lo, hi, capacity)
 
     ns = max_errors + 1
     A = (pos - m_start[:, None]).reshape(R2, ns * capacity)
@@ -290,3 +316,117 @@ def verify_positions(fm: DeviceFM, reads, lengths, rows, anchors, mask, *,
     lrow = lengths[(vrow % n_reads).long()].to(torch.int32)
     return banded_verify(fm.text, torch.where(mask, anchors, 0), reads, vrow,
                          lrow, max_errors)
+
+
+def compact_hits(k: torch.Tensor, j: torch.Tensor, a: torch.Tensor,
+                 row_ids: torch.Tensor, slots: int,
+                 verify_capacity: int | None):
+    """dedup_compact's output from the valid lanes alone.
+
+    k, j, a: (N,) row, slot and anchor of each valid lane, in (row, slot)
+    order; row_ids: (K,). A lane is dropped when an earlier lane of its row
+    has its anchor (a stable sort on (row, anchor) finds the first); each
+    row keeps its first verify_capacity kept lanes in slot order, the rest
+    count as spilled. Returns (vrow, vanch, keep) of (K * kv,) and n_spilled,
+    laid out as dedup_compact's."""
+    K = row_ids.shape[0]
+    dev = row_ids.device
+    kv = (slots if verify_capacity is None or verify_capacity >= slots
+          else verify_capacity)
+    k = k.long()
+    key = (k << 32) | (a.long() & 0xFFFFFFFF)
+    order = torch.sort(key, stable=True).indices
+    ks = key[order]
+    first = torch.ones_like(ks, dtype=torch.bool)
+    first[1:] = ks[1:] != ks[:-1]
+    keep = torch.empty_like(first)
+    keep[order] = first
+    per_row = torch.zeros(K, dtype=torch.int64, device=dev).index_add_(
+        0, k, keep.long())
+    rank = torch.cumsum(keep.long(), 0) - 1 - (torch.cumsum(per_row, 0) - per_row)[k]
+    if kv == slots:
+        sel, dest = keep, k * slots + j.long()
+    else:
+        sel, dest = keep & (rank < kv), k * kv + rank
+    dest = torch.where(sel, dest, K * kv)                  # dump slot, dropped
+    vanch = torch.zeros(K * kv + 1, dtype=torch.int32, device=dev)
+    vanch[dest] = a.to(torch.int32)
+    kept = torch.zeros(K * kv + 1, dtype=torch.bool, device=dev)
+    kept[dest] = True
+    vanch, kept = vanch[:-1], kept[:-1]
+    n_spilled = (keep.sum() - sel.sum()).to(torch.int32)
+    vrow = row_ids.repeat_interleave(kv)
+    return (torch.where(kept, vrow, 0), torch.where(kept, vanch, 0), kept,
+            n_spilled)
+
+
+def repetitive_map_step(fm: DeviceFM, reads: torch.Tensor,
+                        lengths: torch.Tensor, rep_rows: torch.Tensor,
+                        rep_mask: torch.Tensor, *, rate_ppm: int,
+                        max_errors: int, capacity: int, max_slen_rep: int,
+                        verify_capacity: int = 8, budget: int = 1,
+                        indels: bool = False, backend: str = "enum",
+                        sample_rate: int = 1):
+    """Re-seed repetitive rows with fewer, longer approximate seeds.
+
+    Rows whose exact seeds overflowed capacity get s' = ceil((E+1) /
+    (budget+1)) seeds of length l // s', searched with up to `budget`
+    edits (pigeonhole keeps the error budget covered): by layout
+    enumeration (`enum`, substitutions and with `indels` one indel too) or
+    by search schemes on the bidirectional index (`bidir`, substitutions
+    only; the caller guarantees full windows and fm.rfused). Each seed
+    layout's SA interval yields up to `capacity` hits, located on the
+    full or the sampled SA, then deduplicated per row and verified.
+
+    rep_rows: (K,) seq-row ids; rep_mask: (K,) bool.
+    Returns (row, begin, end, dist, ok, n_spilled)."""
+    K = rep_rows.shape[0]
+    n_reads = lengths.shape[0]
+    dev = rep_rows.device
+
+    l = lengths[(rep_rows % n_reads).long()].to(torch.int32)
+    l = torch.where(rep_mask, l, 0)
+    e = errors_for(l, rate_ppm).to(torch.int32)
+    ns2 = (e + budget + 1) // (budget + 1)               # ceil((E+1)/(budget+1))
+    ns2_max = (max_errors + budget + 1) // (budget + 1)
+
+    rows_s = rep_rows.repeat_interleave(ns2_max)
+    sidx = torch.arange(ns2_max, device=dev, dtype=torch.int32).repeat(K)
+    l_s = l.repeat_interleave(ns2_max)
+    ns2_s = ns2.repeat_interleave(ns2_max)
+    slen = torch.where(ns2_s > 0, l_s // ns2_s.clamp(min=1), 0)
+    starts = sidx * slen
+    slens = torch.where(sidx < ns2_s, slen, 0)
+
+    if backend == "bidir":
+        lo, hi, lvalid, w_start = bidir_seed_search(
+            fm.fused, fm.counts, fm.rfused, fm.counts, fm.n, reads, rows_s,
+            starts, slens, max_slen_rep, budget=budget)
+    else:
+        lo, hi, lvalid, w_start = seed_search_edits(
+            fm.fused, fm.counts, fm.n, reads, rows_s, starts, slens,
+            max_slen_rep, budget=budget, indels=indels)
+    hi = torch.where(lvalid, hi, lo)
+
+    # slot j of row k is ((seed * NL) + layout) * capacity + hit; only the
+    # valid slots are located (the one wait of this step)
+    NL = lo.shape[1]
+    slots = ns2_max * NL * capacity
+    _, hmask, _ = gather_hit_rows(lo.reshape(-1), hi.reshape(-1), capacity)
+    k, j = hmask.reshape(K, slots).nonzero(as_tuple=True)
+    lane = k * (ns2_max * NL) + torch.div(j, capacity, rounding_mode="floor")
+    sa_rows = lo.reshape(-1)[lane] + (j % capacity).to(torch.int32)
+    if sample_rate > 1:
+        pos = locate_sampled_fused(fm.fused, fm.counts, fm.sa_mark_bits,
+                                   fm.sa_rank_ck, fm.sa, sa_rows, sample_rate)
+    else:
+        pos = fm.sa[sa_rows.long()]
+    # anchor = window begin in the text; an indel layout shifts the
+    # window's end by one, which the verifier's band absorbs
+    anchors = pos - w_start[torch.div(lane, NL, rounding_mode="floor")]
+    vrow, vanch, keep, n_spilled = compact_hits(
+        k, j, anchors, torch.where(rep_mask, rep_rows, 0), slots,
+        verify_capacity)
+    dist, beg, end, ok = verify_candidates(fm, reads, lengths, vrow, vanch,
+                                           keep, rate_ppm, max_errors)
+    return vrow, beg, end, dist, ok, n_spilled

@@ -8,9 +8,15 @@ the current stream, and each chunk's bundle is copied to pinned host memory
 behind them, with an event the drain waits on. So a caller that dispatches
 batch i+1 before draining batch i keeps the card busy while the host
 finishes batch i. The drain is the only place that synchronises.
+
+Seeds that overflow their capacity go, at sensitivity `full`, to the host
+overflow pass, and at `high` to the repetitive re-seed strata
+(`_repetitive_pass`, on the device); `low` keeps the capped hits only.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -22,7 +28,8 @@ from .._shared import (FMIndex, GlobalContigs, Matches, MapperOptions, Ranked,
                        write_pe_records, write_se_records)
 from ..ops.device_index import DeviceFM, to_device
 from ..ops.readpack import pack_blob_with_lengths
-from .map_step import (MapStepOut, max_seed_len_static,
+from .map_step import (MapStepOut, max_rep_seed_len_static,
+                       max_seed_len_static, repetitive_map_step,
                        single_bin_map_step_packed, unbundle_out,
                        uniform_len_ok, verify_positions)
 from .seeding import max_errors_for_batch, rate_to_ppm
@@ -49,12 +56,6 @@ class _Fetch:
         return self._host.numpy()
 
 
-def _not_ported(what: str, item: int):
-    return NotImplementedError(
-        f"{what} is not ported to dream_yara_tpu_torch yet "
-        f"(ROADMAP Queue 1 item {item})")
-
-
 def verify_padded(dev: DeviceFM, reads_d: torch.Tensor, lens_d: torch.Tensor,
                   rows: np.ndarray, anchors: np.ndarray, max_err: int):
     """Verify explicit (row, anchor) candidates in calls of FALLBACK_PAD
@@ -76,18 +77,21 @@ def verify_padded(dev: DeviceFM, reads_d: torch.Tensor, lens_d: torch.Tensor,
 
 
 class BinMapper:
-    """Maps read batches against ONE bin (local coordinates) on `device`."""
+    """Maps read batches against ONE bin (local coordinates) on `device`.
+    `rfused`: the reverse-text fused rank rows (index/bifm.py), which
+    enable the bidirectional seed backend of the repetitive strata."""
 
     def __init__(self, store: SeqStore, fm: FMIndex, opts: MapperOptions,
-                 device: torch.device, timers: StageTimers | None = None):
-        if fm.sample_rate > 1:
-            raise _not_ported("sampled-SA mapping", 11)
+                 device: torch.device, timers: StageTimers | None = None,
+                 rfused: np.ndarray | None = None):
         self.store = store
         self.fm = fm
         self.opts = opts
         self.device = torch.device(device)
-        self.dev = DeviceFM.from_host(fm, store.text, self.device)
+        self.dev = DeviceFM.from_host(fm, store.text, self.device,
+                                      rfused=rfused)
         self.prefix_q = fm.prefix_q
+        self.sample_rate = fm.sample_rate
         self.timers = timers or StageTimers()
 
     def map_batch(self, batch: ReadBatch, capacity: int = 8) -> Matches:
@@ -116,7 +120,8 @@ class BinMapper:
         step_kw = dict(rate_ppm=rate_ppm, max_errors=max_err,
                        capacity=capacity, max_slen=max_slen, prefix_q=prefix_q,
                        uniform_len=uniform_len_ok(batch.lengths, L, rate_ppm,
-                                                  max_err))
+                                                  max_err),
+                       sample_rate=self.sample_rate)
         pending = []
         for c0 in range(0, n, half):
             ids = np.arange(c0, min(c0 + half, n))
@@ -165,18 +170,23 @@ class BinMapper:
                     parts.append(self._remap_chunk(m, ids, half, n))
 
             if int(out.overflow_total) > 0 and self.opts.sensitivity != "low":
-                if self.opts.sensitivity != "full":
-                    raise _not_ported(
-                        "the repetitive re-seed pass (sensitivity "
-                        f"{self.opts.sensitivity!r} with overflowing seeds)", 12)
+                # sensitivity low keeps the capacity-capped hits only
                 out = out._replace(seed_lo=out.seed_lo.cpu().numpy(),
                                    seed_hi=out.seed_hi.cpu().numpy(),
                                    overflow=out.overflow.cpu().numpy(),
                                    m_start=out.m_start.cpu().numpy())
-                with self.timers.stage("overflow fallback"):
-                    parts.append(self._overflow_pass(
-                        out, full_reads(ids), lens_c, ids, half, n, max_err,
-                        rate_ppm))
+                reads_c = full_reads(ids)
+                if self.opts.sensitivity == "full":
+                    # complete: expand every spilled SA interval on the host
+                    with self.timers.stage("overflow fallback"):
+                        parts.append(self._overflow_pass(
+                            out, reads_c, lens_c, ids, half, n, max_err,
+                            rate_ppm))
+                else:
+                    with self.timers.stage("repetitive re-seed (device)"):
+                        parts.append(self._repetitive_pass(
+                            out, reads_c, lens_c, ids, half, n, max_err,
+                            rate_ppm))
         # dedup happens after the cross-contig filter (map_single_bin)
         return Matches.concat(parts)
 
@@ -209,6 +219,80 @@ class BinMapper:
         m.read_id = ids[m.read_id].astype(np.int32)
         return m
 
+    REP_PAD = 1024  # rows per repetitive re-seed group
+    REP1_T = 32     # stratum-1 window truncation (layout lanes ~ 8 t)
+    REP2_T = 16     # stratum-2 truncation: 9 C(t, 2) layouts
+
+    def _seed_backend(self, rows_np, lens_c, rate_ppm, budget, indels,
+                      t_max) -> str:
+        """The approximate-seed backend of one repetitive stratum: `bidir`
+        (search schemes) needs the reverse rows on the device, a
+        substitution-only stratum and full seed windows (every row's seed
+        length >= t_max); anything else enumerates layouts. DY_SEED_BACKEND
+        = enum|bidir|auto overrides opts.seed_backend."""
+        mode = os.environ.get("DY_SEED_BACKEND",
+                              getattr(self.opts, "seed_backend", "auto"))
+        if mode == "enum" or self.dev.rfused is None or indels \
+                or len(rows_np) == 0:
+            return "enum"
+        l = lens_c[rows_np % lens_c.shape[0]].astype(np.int64)
+        e = (l * rate_ppm) // 10_000
+        ns2 = (e + budget + 1) // (budget + 1)
+        slen = np.where(ns2 > 0, l // np.maximum(ns2, 1), 0)
+        return "bidir" if (slen >= t_max).all() else "enum"
+
+    def _repetitive_pass(self, out: MapStepOut, reads_c, lens_c, ids, half, n,
+                         max_err, rate_ppm) -> Matches:
+        """Device re-seed of the rows whose exact seeds overflowed. Stratum
+        1: ceil((E+1)/2) long seeds with <= 1 edit (substitutions, and one
+        indel with opts.indels). Stratum 2: the rows still without a match
+        get ceil((E+1)/3) seeds with <= 2 substitutions. Each group of
+        REP_PAD rows is timed under "repetitive stratum k (backend)"."""
+        ns = max_err + 1
+        R2 = reads_c.shape[0]
+        rep_rows = np.flatnonzero(
+            np.asarray(out.overflow).reshape(R2, ns).sum(axis=1) > 0
+        ).astype(np.int32)
+        if len(rep_rows) == 0:
+            return Matches.concat([])
+        msl = max_rep_seed_len_static(reads_c.shape[1], rate_ppm)
+        reads_d = to_device(reads_c, self.device)
+        lens_d = to_device(lens_c, self.device)
+
+        def run(rows_np, stratum, budget, indels, t_max):
+            backend = self._seed_backend(rows_np, lens_c, rate_ppm, budget,
+                                         indels, t_max)
+            parts, matched = [], np.zeros(0, dtype=np.int64)
+            for b0 in range(0, len(rows_np), self.REP_PAD):
+                rb = rows_np[b0 : b0 + self.REP_PAD]
+                padn = self.REP_PAD - len(rb)
+                mask = np.concatenate([np.ones(len(rb), bool),
+                                       np.zeros(padn, bool)])
+                rb = np.concatenate([rb, np.zeros(padn, np.int32)])
+                with self.timers.stage(f"repetitive stratum {stratum} ({backend})"):
+                    res = repetitive_map_step(
+                        self.dev, reads_d, lens_d, to_device(rb, self.device),
+                        to_device(mask, self.device), rate_ppm=rate_ppm,
+                        max_errors=max_err, capacity=4, max_slen_rep=t_max,
+                        budget=budget, indels=indels, backend=backend,
+                        sample_rate=self.sample_rate)
+                    row, beg, end, dist, ok = _Fetch(torch.stack(
+                        [*res[:4], res[4].to(torch.int32)])).result()
+                ok = ok.astype(bool)
+                matched = np.union1d(matched, row[ok])
+                m = build_matches(row, beg, end, dist, ok, n_reads=half)
+                parts.append(self._remap_chunk(m, ids, half, n))
+            return parts, matched
+
+        parts, matched = run(rep_rows, 1, budget=1, indels=self.opts.indels,
+                             t_max=min(msl, self.REP1_T))
+        # stratum 2: rows the 1-edit stratum could not place at all
+        rows2 = np.setdiff1d(rep_rows, matched).astype(np.int32)
+        if len(rows2):
+            parts += run(rows2, 2, budget=2, indels=False,
+                         t_max=min(msl, self.REP2_T))[0]
+        return Matches.concat(parts)
+
     def _overflow_pass(self, out: MapStepOut, reads_c, lens_c, ids, half, n,
                        max_err, rate_ppm) -> Matches:
         """Verify seed hits beyond device capacity (host expansion, device verify)."""
@@ -224,7 +308,11 @@ class BinMapper:
             if l == 0:
                 continue
             start = int(out.m_start[s])  # true start of the matched part
-            pos = sa[lo:hi].astype(np.int64)
+            if self.fm.sample_rate > 1:
+                pos = np.array([self.fm.locate(r) for r in range(lo, hi)],
+                               dtype=np.int64)
+            else:
+                pos = sa[lo:hi].astype(np.int64)
             rows_l.append(np.full(len(pos), row, dtype=np.int32))
             anchors_l.append((pos - start).astype(np.int32))
         if not rows_l:

@@ -66,3 +66,60 @@ def test_gather_kernel_equals_plain_edition(cuda_device, nb, W, Q, idx_dtype):
     assert got.device.type == "cuda" and got.dtype == torch.int32
     assert torch.equal(got, want)
     assert row_gather_cuda.gather_rows(table, idx[:0]).shape == (0, W)
+
+
+@pytest.fixture(scope="module")
+def rich_bin():
+    """A 200 kbp repeat-rich bin, its rate-8 index, reverse rows and 64
+    reads (half from repeat copies) as a (fwd | revcomp) row matrix."""
+    from dream_yara_tpu_torch._shared import (FMIndex, SeqStore,
+                                              build_reverse_fused,
+                                              repeat_rich_genome, sample_reads)
+
+    rng = np.random.default_rng(9)
+    g, ann = repeat_rich_genome(rng, 200_000, alu_count=100, tandem_loci=4,
+                                n_runs=2)
+    store = SeqStore.from_seqs(["g"], [g])
+    fm = FMIndex.build(store.text)
+    reads, _ = sample_reads(rng, g, 64, regions=ann["alu"] + ann["tandem"])
+    R = np.stack(reads).astype(np.int8)
+    rc = np.where(R[:, ::-1] < 4, 3 - R[:, ::-1], R[:, ::-1])
+    return (store, fm, fm.subsample_sa(8), build_reverse_fused(store.text)[0],
+            np.concatenate([R, rc]), np.full(64, 100, np.int32))
+
+
+def test_sampled_locate_on_card_equals_full_sa(cuda_device, rich_bin):
+    from dream_yara_tpu_torch.ops.device_index import DeviceFM
+    from dream_yara_tpu_torch.ops.locate import locate_sampled_fused
+
+    store, fm, fm8, _, _, _ = rich_bin
+    d = DeviceFM.from_host(fm8, store.text, cuda_device)
+    rows = torch.arange(fm.n, dtype=torch.int32, device=cuda_device)
+    before = row_gather_cuda.kernel.launches
+    got = locate_sampled_fused(d.fused, d.counts, d.sa_mark_bits, d.sa_rank_ck,
+                               d.sa, rows, 8)
+    assert row_gather_cuda.kernel.launches == before + 7      # one a LF step
+    np.testing.assert_array_equal(got.cpu().numpy(), fm.sa)
+
+
+@pytest.mark.parametrize("backend,budget,indels,m", [
+    ("enum", 1, True, 32), ("enum", 2, False, 16),
+    ("bidir", 1, False, 32), ("bidir", 2, False, 16)])
+def test_repetitive_step_on_card_equals_cpu(cuda_device, rich_bin, backend,
+                                            budget, indels, m):
+    from dream_yara_tpu_torch.ops.device_index import DeviceFM
+    from dream_yara_tpu_torch.pipeline.map_step import repetitive_map_step
+
+    store, _, fm8, rfused, reads, lens = rich_bin
+    rows = np.arange(0, 128, 2, dtype=np.int32)
+    mask = np.arange(64) < 60
+    kw = dict(rate_ppm=300, max_errors=3, capacity=4, max_slen_rep=m,
+              budget=budget, indels=indels, backend=backend, sample_rate=8)
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        d = DeviceFM.from_host(fm8, store.text, dev, rfused=rfused)
+        args = [torch.from_numpy(a).to(dev) for a in (reads, lens, rows, mask)]
+        outs.append([x.cpu() for x in repetitive_map_step(d, *args, **kw)])
+    for g, w in zip(*outs):
+        assert torch.equal(g, w)
+    assert int(outs[0][4].sum()) > 0

@@ -125,15 +125,18 @@ def _run_steps(store, fm, seqs, lens, half, uniform_len, **kw):
 
 
 @pytest.mark.parametrize("mode", ["compact", "compact_spill", "dense",
-                                  "per_row", "gather_path"])
+                                  "per_row", "gather_path", "sampled"])
 def test_map_step_packed_equals_jax(chunk, mode):
     store, fm, seqs, lens = chunk
     uniform = mode != "gather_path"
     if uniform:   # the fast path needs every read at full length
         seqs, lens = seqs[:-1], lens[:-1]
+    if mode == "sampled":   # hits located by the LF walk in both packages
+        fm = fm.subsample_sa(4)
     kw = {"compact": dict(compact_cap=256), "compact_spill": dict(compact_cap=24),
           "dense": dict(verify_capacity=None), "per_row": dict(verify_capacity=3),
-          "gather_path": dict(compact_cap=256)}[mode]
+          "gather_path": dict(compact_cap=256),
+          "sampled": dict(compact_cap=256, sample_rate=4)}[mode]
     got, want = _run_steps(store, fm, seqs, lens, 128, uniform, **kw)
     ok = np.asarray(got.ok)
     _eq(ok, want.ok, "ok")

@@ -49,6 +49,9 @@ def test_device_index_fields_equal_jax(index):
     t = DeviceFM.from_host(fm, store.text, CPU)
     j = JDeviceFM.from_host(fm, store.text)
     for name in t._fields:
+        if getattr(j, name) is None:         # sampled-SA and bidirectional fields
+            assert getattr(t, name) is None, name
+            continue
         assert getattr(t, name).dtype == {
             "bwt_blocks": torch.int8, "text": torch.int8}.get(name, torch.int32)
         _eq(getattr(t, name), getattr(j, name), name)

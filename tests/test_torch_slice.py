@@ -1,8 +1,9 @@
 """Port parity for the whole config-1 slice: the port's dream_map_sam and
 dream_map_stream against the JAX package's on a toy DREAM database (filter
-none). The SAM output must be byte-identical, on the default path and on a
+none). The SAM output must be byte-identical, on the default path, on a
 tandem-repeat case that spills the verify compaction (dense re-verify) and
-overflows seed capacity (the host overflow pass)."""
+overflows seed capacity (the host overflow pass at sensitivity full, the
+repetitive strata at high), and on a sampled SA."""
 
 import os
 import subprocess
@@ -156,26 +157,58 @@ def test_spill_and_overflow_byte_identical(tandem, monkeypatch):
 
 
 def test_repetitive_pass_raises_not_implemented(tandem, monkeypatch):
-    """Overflowing seeds under sensitivity "high" need the repetitive
-    re-seed pass, which is not ported: the port raises, never degrades."""
+    """Overflowing seeds under sensitivity "high" (the default) take the
+    repetitive re-seed strata: the SAM is byte-identical to the JAX
+    package's (the name dates from before the strata were ported)."""
     store, fm, batch = tandem
+    monkeypatch.setattr(jmapper.BinMapper, "DENSE_HALF", 512)
     monkeypatch.setattr(tmapper.BinMapper, "DENSE_HALF", 512)
-    ids = np.arange(700, 760)
+    monkeypatch.setattr(jmapper.BinMapper, "REP_PAD", 64)
+    monkeypatch.setattr(tmapper.BinMapper, "REP_PAD", 64)
+    ids = np.concatenate([np.arange(700, 740), np.arange(0, 20)])
     sub = ReadBatch(names=[batch.names[i] for i in ids],
                     seqs=batch.seqs[np.concatenate([ids, batch.n_reads + ids])],
                     lengths=batch.lengths[ids],
                     quals=[batch.quals[i] for i in ids], paired=False)
     opts = MapperOptions(error_rate=0.03, sensitivity="high")
+    want = jdm.dream_map_sam(jdm.DreamIndex([store], [fm], None, "none"),
+                             sub, opts)
+    timers = StageTimers()
     index = tdm.DreamIndex([store], [fm], None, "none", device=CPU)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tdm.dream_map_sam(index, sub, opts)
+    assert tdm.dream_map_sam(index, sub, opts, timers=timers) == want
+    assert timers.totals.get("repetitive re-seed (device)", 0) > 0
 
 
-def test_unported_paths_raise(db):
+def test_unported_paths_raise(db, tandem, monkeypatch):
+    """A sampled SA (rate 4) maps to the same SAM bytes as the JAX package
+    on the same index, on the default path and through the host overflow
+    pass's sampled locate (the name dates from before the sampled SA was
+    ported); CPU runs never launch a kernel."""
     rng, stores, fms = db
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tmapper.BinMapper(stores[0], fms[0].subsample_sa(4), MapperOptions(), CPU)
-    # CPU runs never launch a kernel
+    batch = _batch(rng, stores, 20, "q")
+    opts = MapperOptions(error_rate=0.03, sensitivity="full")
+    fms4 = [fm.subsample_sa(4) for fm in fms]
+    want = jdm.dream_map_sam(jdm.DreamIndex(stores, fms4, None, "none"),
+                             batch, opts)
+    index = tdm.DreamIndex(stores, fms4, None, "none", device=CPU)
+    assert tdm.dream_map_sam(index, batch, opts) == want
+    assert want == jdm.dream_map_sam(jdm.DreamIndex(stores, fms, None, "none"),
+                                     batch, opts)
+    store, fm, tbatch = tandem
+    monkeypatch.setattr(jmapper.BinMapper, "DENSE_HALF", 512)
+    monkeypatch.setattr(tmapper.BinMapper, "DENSE_HALF", 512)
+    ids = np.arange(680, 740)
+    sub = ReadBatch(names=[tbatch.names[i] for i in ids],
+                    seqs=tbatch.seqs[np.concatenate([ids, tbatch.n_reads + ids])],
+                    lengths=tbatch.lengths[ids],
+                    quals=[tbatch.quals[i] for i in ids], paired=False)
+    timers = StageTimers()
+    index = tdm.DreamIndex([store], [fm.subsample_sa(4)], None, "none",
+                           device=CPU)
+    got = tdm.dream_map_sam(index, sub, opts, timers=timers)
+    assert timers.totals.get("overflow fallback", 0) > 0
+    assert got == jdm.dream_map_sam(jdm.DreamIndex([store], [fm], None, "none"),
+                                    sub, opts)
     assert banded_verify_cuda.kernel.launches == 0
     assert row_gather_cuda.kernel.launches == 0
 
@@ -216,6 +249,25 @@ sam = dm.dream_map_sam(index, pe, opts).decode()
 recs = [l.split("\\t") for l in sam.splitlines() if not l.startswith("@")]
 assert [(r[2], r[3], int(r[1]) & 0x2) for r in recs] == [
     ("d", "501", 2), ("d", "701", 2)], recs
+# a repeated segment on a rate-4 sampled SA with a bidirectional sidecar:
+# the read's exact seeds overflow, so sensitivity high re-seeds it
+from dream_yara_tpu_torch._shared import StageTimers, build_reverse_fused
+from dream_yara_tpu_torch.pipeline.mapper import BinMapper
+BinMapper.REP_PAD = 16          # small groups keep the CPU run short
+seg = rng.integers(0, 4, 300).astype(np.int8)
+store = SeqStore.from_seqs(["t"], [np.concatenate([np.tile(seg, 20), g])])
+read = seg[50:150].copy()
+read[50] = (read[50] + 1) % 4
+index = dm.DreamIndex([store], [FMIndex.build(store.text, sample_rate=4)],
+                      None, "none", device=torch.device("cpu"),
+                      rfused={0: build_reverse_fused(store.text)[0]})
+timers = StageTimers()
+sam = dm.dream_map_sam(index, ReadBatch.from_reads(["t"], [read]),
+                       MapperOptions(error_rate=0.03), timers=timers).decode()
+recs = [l.split("\t") for l in sam.splitlines() if not l.startswith("@")]
+assert (int(recs[0][3]) - 51) % 300 == 0 and recs[0][5] == "100M", recs
+assert timers.totals["repetitive re-seed (device)"] > 0, timers.totals
+assert "dream_yara_tpu.ops.rank" not in sys.modules
 print("NO_JAX_OK")
 """
 
