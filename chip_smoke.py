@@ -4,9 +4,11 @@
     python3 chip_smoke.py
 
 Drives the port's config-1 single-end path, its config-2 paired-end DREAM
-path and its repeat-rich path (sampled SA, repetitive re-seed strata) once
-each, at full size, and fails (non-zero exit, no result line) on any error,
-when no CUDA device is present, or when the port cannot be imported. Phases:
+path, its repeat-rich path (sampled SA, repetitive re-seed strata), its
+flat multi-bin path on config-5 (256 bins, --mesh on one card) and its
+mapper CLI, at full size, and fails (non-zero exit, no result line) on
+any error, when no CUDA device is present, or when the port cannot be
+imported. Phases:
 
   1. card     — the card's name and power limit (nvidia-smi);
   2. build    — nvcc builds both kernels from csrc/ at once (ptxas lines);
@@ -16,7 +18,10 @@ when no CUDA device is present, or when the port cannot be imported. Phases:
                 indices; both times from CUDA events, in turns;
   4. verify   — the banded-verify kernel against its plain edition at the
                 config-1 (L=100, E=3) and config-2 (L=150, E=4) shapes, at
-                L=250/E=12 and on edge lanes;
+                L=250/E=12 and on edge lanes; then its stacked-text entry at
+                the config-5 shape (256 bins, 78,125 lanes), on edge layouts
+                of unequal bins, and with one bin against the single-bin
+                entry;
   5. chunk    — a map-step chunk on the CPU and on the card (bundles
                 identical) and the full chunk with no host sync, config-1
                 and config-2 shapes;
@@ -29,7 +34,8 @@ when no CUDA device is present, or when the port cannot be imported. Phases:
                 (tools/bench_config2.py's workload) streamed through
                 dream_map_stream: both kernels launched, every read routed
                 to its bin, >= 99 % mapped; a 1,024-pair subsample gives
-                the same SAM bytes on the card and on the CPU;
+                the same SAM bytes on the card and on the CPU; 16,384 pairs
+                through the flat step (MeshDreamMapper) give the per-bin SAM;
   8. rep-rich — one 32 Mbp repeat-rich bin at sample rate 8 with its
                 bidirectional sidecar, 100 bp reads half from repeat copies
                 (tools/bench_bidir_ab.py's workload) at the default options:
@@ -39,7 +45,19 @@ when no CUDA device is present, or when the port cannot be imported. Phases:
                 backends' groups run), SAM identical on the sampled and the
                 full SA and between card and CPU, a profile of one group
                 per backend;
-  9. result   — the kernel table and the device line as JSON.
+  9. config-5 — 256 bins x 400,000 bp (seed 52) with a blocked IBF and
+                Zipf-routed 100 bp reads (tools/bench_config5.py's
+                workload): one flat step of a 50,000-read batch identical
+                on CPU and card and free of host syncs, its time, memory
+                and profile; 4 x 50,000 reads streamed through
+                mesh_dream_stream (>= 99 % mapped);
+                one batch through the per-bin path, SAM byte-identical;
+                1,024 reads give the same SAM on the card and on the CPU;
+ 10. cli      — the shared indexer and build-filter write a 4-bin database;
+                the port's CLI maps SE and PE FASTQ in a subprocess on the
+                card, default path and --mesh, each output equal to the
+                in-process SAM;
+ 11. result   — the kernel table and the device line as JSON.
 
 Every number printed is measured in this run, on the card named beside it.
 """
@@ -79,6 +97,17 @@ RR_LOCATE_ROWS = 1 << 20
 RR_SAM_READS = 2_048
 RR_CPU_READS = 256
 
+C5_BINS = 256                # tools/bench_config5.py's database and reads
+C5_BIN_LEN = 400_000
+C5_BATCH = 50_000
+C5_N_BATCHES = 4             # streamed once after one warm-up batch
+C5_VERIFY_LANES = 78_125     # cap2v = 1.25 x the pool of a 50,000-read batch
+C5_CPU_READS = 1_024
+C2_MESH_PAIRS = 16_384
+CLI_BINS = 4
+CLI_BIN_LEN = 200_000
+CLI_READS = 2_000
+
 # (what, TPU kernel it replaces or None, rows, int32 words a row, queries,
 #  index dtype): the probe shape of each TPU kernel, then the config-2
 #  path's shapes: one rank trip of a 65,536-read chunk (2 rows x 5 seeds x
@@ -110,40 +139,6 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def verify_case(rng, text: np.ndarray, C: int, L: int, E: int):
-    """Candidates for banded verification, vectorised: reads cut from the
-    text at their anchor shifted by up to E (indel-like offsets), with
-    substitutions, some N, some shorter reads and some random reads; read
-    rows are a permutation of the lanes. Returns numpy arrays
-    (anchors, reads, read_rows, lengths)."""
-    n = len(text)
-    anchors = rng.integers(0, n - L - E, C).astype(np.int32)
-    shift = rng.integers(-E, E + 1, C)
-    pos = np.clip(anchors[:, None] + shift[:, None] + np.arange(L)[None, :],
-                  0, n - 1)
-    reads = text[pos].copy()
-    sub = rng.random((C, L)) < 0.02
-    reads[sub] = (reads[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
-    reads[rng.random((C, L)) < 0.002] = 4
-    noise = rng.random(C) < 0.05
-    reads[noise] = rng.integers(0, 4, (int(noise.sum()), L))
-    lengths = np.full(C, L, np.int32)
-    short = rng.random(C) < 0.1
-    lengths[short] = rng.integers(1, L + 1, int(short.sum()))
-    reads[np.arange(L)[None, :] >= lengths[:, None]] = 4
-    perm = rng.permutation(C).astype(np.int32)
-    return anchors, reads[perm].astype(np.int8), np.argsort(perm).astype(np.int32), lengths
-
-
-def edge_case(text: np.ndarray, anchors, reads, read_rows, lengths):
-    """Anchors at 0, near and past the text end and negative; length-0 lanes."""
-    n = len(text)
-    anchors[:8] = [0, 1, n - 10, n - 1, n + 5, -1, -3, -40]
-    lengths[8:12] = 0
-    read_rows[12] = reads.shape[0] + 7           # outside the read matrix
-    return anchors, reads, read_rows, lengths
-
-
 def cuda_time_ms(fn, reps: int) -> float:
     import torch
 
@@ -168,17 +163,23 @@ def in_turns(plain, kernel, plain_reps: int, kernel_reps: int):
     return k1, k2, p1, p2
 
 
-def launch_counts() -> dict:
+def launch_counts(*keys) -> dict:
+    """Launches since the last reset of the given kernel entries (all by
+    default): the single-bin and the stacked verify entry, the row gather."""
     from dream_yara_tpu_torch.ops import banded_verify_cuda, row_gather_cuda
 
-    return {"banded_verify": banded_verify_cuda.kernel.launches,
-            "row_gather": row_gather_cuda.kernel.launches}
+    v = banded_verify_cuda.kernel
+    counts = {"banded_verify": v.launches - v.stacked_launches,
+              "banded_verify_stacked": v.stacked_launches,
+              "row_gather": row_gather_cuda.kernel.launches}
+    return {k: counts[k] for k in (keys or counts)}
 
 
 def reset_launch_counts() -> None:
     from dream_yara_tpu_torch.ops import banded_verify_cuda, row_gather_cuda
 
     banded_verify_cuda.kernel.launches = 0
+    banded_verify_cuda.kernel.stacked_launches = 0
     row_gather_cuda.kernel.launches = 0
 
 
@@ -278,6 +279,7 @@ def phase_verify(text_np, card):
 
     from dream_yara_tpu_torch.ops import verify
     from dream_yara_tpu_torch.ops.banded_verify_cuda import kernel
+    from dream_yara_tpu_torch.verify_cases import edge_case, verify_case
 
     dev = torch.device("cuda")
     text = torch.from_numpy(text_np).to(dev)
@@ -419,10 +421,13 @@ def profile_step(label, fn, card) -> None:
         log(f"[profile] {label}: the profiler saw no device time (not measured)")
         return
     rows.sort(reverse=True)
-    gather = sum(t for t, k, _ in rows if "row_gather_kernel" in k)
+    share = ""
+    for name in ("row_gather_kernel", "banded_verify_kernel"):
+        t = sum(t for t, k, _ in rows if name in k)
+        if t:
+            share += f"; {name} {t / 1e3:.3f} ms = {100 * t / total:.1f} %"
     log(f"[profile] {label}: {total / 1e3:.3f} ms of device kernels, "
-        f"{sum(n for _, _, n in rows)} launches; row_gather_kernel "
-        f"{gather / 1e3:.3f} ms = {100 * gather / total:.1f} % ({card})")
+        f"{sum(n for _, _, n in rows)} launches{share} ({card})")
     for t, k, n in rows[:8]:
         log(f"[profile]   {t / 1e3:9.3f} ms  x{n:<5d} {k[:90]}")
 
@@ -476,7 +481,7 @@ def phase_config1(store, fm, batches, card):
                                  stats=stats))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = launch_counts()
+    launches = launch_counts("banded_verify", "row_gather")
     peak = torch.cuda.max_memory_allocated()
     n_records = sum(sum(1 for line in s.split(b"\n") if line and line[:1] != b"@")
                     for s in sams)
@@ -640,7 +645,7 @@ def phase_config2(card):
                          if line and line[:1] != b"@")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = launch_counts()
+    launches = launch_counts("banded_verify", "row_gather")
     peak = torch.cuda.max_memory_allocated()
     log(f"[config-2] {n_total} reads ({n_total // 2} pairs) in {wall:.3f} s = "
         f"{n_total / wall:.1f} reads/s ({card}); SAM records {n_records}; "
@@ -687,6 +692,8 @@ def phase_config2(card):
     log(f"[config-2] {C2_SUB_PAIRS}-pair subsample: SAM identical on the card "
         f"and on the CPU ({len(card_sam)} bytes; CPU run "
         f"{time.perf_counter() - t0:.1f} s)")
+    del cpu_index
+    phase_config2_mesh(index, opts, batches[0], card)
     return launches
 
 
@@ -890,7 +897,7 @@ def phase_rep_rich(card):
                                  stats=stats))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = launch_counts()
+    launches = launch_counts("banded_verify", "row_gather")
     peak = torch.cuda.max_memory_allocated()
     groups = {k: v for k, v in timers.counts.items()
               if k.startswith("repetitive stratum")}
@@ -944,6 +951,399 @@ def phase_rep_rich(card):
     return launches
 
 
+def phase_stacked_verify(card):
+    """The stacked-text verify entry against its plain edition: at the
+    config-5 shape (256 bins of 400,000 bp, the verify lanes of a 50,000-read
+    batch), on the edge layout of unequal bins, and with one bin against the
+    single-bin entry. Returns its kernel-table entry."""
+    import torch
+
+    from dream_yara_tpu_torch.ops import verify
+    from dream_yara_tpu_torch.ops.banded_verify_cuda import kernel
+    from dream_yara_tpu_torch.verify_cases import stacked_case
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    worst, timing = 0, None
+    cases = (("config-5", [C5_BIN_LEN + 1] * C5_BINS, C5_VERIFY_LANES, 100, 3, False),
+             ("edges, unequal bins", [2000 + 128 * b + 7 * (b % 3) for b in range(5)],
+              4_096, 100, 3, True),
+             ("edges, L=150 E=4", [3000, 1000, 2500], 4_096, 150, 4, True))
+    for what, lens, C, L, E, edges in cases:
+        host = stacked_case(rng, lens, C, L, E, edges)
+        text, bin_n, lane_bin, anchors, reads, rows, lengths = (
+            torch.from_numpy(a).to(dev) for a in host)
+        args = (text, anchors, reads, rows, lengths, E)
+        got = kernel(*args, lane_bin=lane_bin, bin_n=bin_n)
+        want = verify.banded_verify(*args, lane_bin=lane_bin, bin_n=bin_n)
+        torch.cuda.synchronize()
+        errs = [int((g.long() - w.long()).abs().max()) for g, w in zip(got, want)]
+        worst = max(worst, *errs)
+        log(f"[stacked] {what}: B={len(lens)} C={C} L={L} E={E}: max |kernel - "
+            f"plain| dist/begin/end = {errs} (tolerance: exact); lanes within E: "
+            f"{int((want[0] <= E).sum())}/{C}")
+        if any(errs):
+            raise AssertionError(f"stacked kernel disagrees at {what}: {errs}")
+        if not edges:
+            kw = dict(lane_bin=lane_bin, bin_n=bin_n)
+            k1, k2, p1, p2 = in_turns(lambda: verify.banded_verify(*args, **kw),
+                                      lambda: kernel(*args, **kw), 3, 20)
+            log(f"[stacked] {what}: kernel {k1} ms then {k2} ms, plain {p1} ms "
+                f"then {p2} ms ({card})")
+            timing = (k1, p1)
+        del text, reads
+    # one bin: the stacked entry equals the single-bin entry
+    host = stacked_case(rng, [50_000], 8_192, 100, 3, True)
+    text, bin_n, lane_bin, anchors, reads, rows, lengths = (
+        torch.from_numpy(a).to(dev) for a in host)
+    one = kernel(text, anchors, reads, rows, lengths, 3, lane_bin=lane_bin,
+                 bin_n=bin_n)
+    single = kernel(text[0], anchors, reads, rows, lengths, 3)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(one, single)):
+        raise AssertionError("stacked entry with one bin differs from the "
+                             "single-bin entry")
+    log("[stacked] B=1: the stacked entry equals the single-bin entry on 8,192 "
+        "lanes (edge anchors included)")
+    torch.cuda.empty_cache()
+    return {"name": "banded_verify_stacked", "route": "cuda",
+            "source": "dream_yara_tpu_torch/csrc/banded_verify.cu",
+            "replaces": "dream_yara_tpu/ops/pallas_verify.py:30",
+            "launcher": "dream_yara_tpu/ops/pallas_verify.py:93",
+            "shape": f"config-5: B={C5_BINS}, C={C5_VERIFY_LANES}, L=100, E=3",
+            "max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1]}
+
+
+def build_config5():
+    """tools/bench_config5.py's database: 256 random bins of 400,000 bp from
+    default_rng(52), an FM index each, and a blocked canonical IBF of
+    12 x 400,000 x 256 bits (3 hashes, k = 19)."""
+    from dream_yara_tpu_torch._shared import (FMIndex, InterleavedBloomFilter,
+                                              SeqStore)
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(52)
+    genomes = [rng.integers(0, 4, C5_BIN_LEN).astype(np.int8)
+               for _ in range(C5_BINS)]
+    stores = [SeqStore.from_seqs([f"g{b:04d}"], [g]) for b, g in enumerate(genomes)]
+    fms = [FMIndex.build(stores[0].text)]
+    with ThreadPoolExecutor(max_workers=7) as ex:
+        fms += list(ex.map(lambda st: FMIndex.build(st.text), stores[1:]))
+    t1 = time.perf_counter()
+    bins_padded = ((C5_BINS + 63) // 64) * 64
+    ibf = InterleavedBloomFilter.create(C5_BINS,
+                                        size_bits=12 * C5_BIN_LEN * bins_padded,
+                                        n_hashes=3, k=19)
+    for b, g in enumerate(genomes):
+        ibf.add_kmers(g, b)
+    log(f"[config-5] {C5_BINS} bins x {C5_BIN_LEN} bp, FM indexes (q="
+        f"{fms[0].prefix_q}) in {t1 - t0:.1f} s, IBF ({ibf.words.nbytes} bytes, "
+        f"blocked={ibf.blocked}, canonical={ibf.canonical}) in "
+        f"{time.perf_counter() - t1:.1f} s (host)")
+    return genomes, stores, fms, ibf
+
+
+def make_batch5(genomes, n_reads, rng):
+    """tools/bench_config5.py's reads: Zipf-weighted source bins (rank r
+    weighs 1 / (r + 1)), 100 bp windows with 0-3 substitutions, every other
+    read reverse-complemented."""
+    from dream_yara_tpu_torch._shared import ReadBatch, revcomp
+
+    B = len(genomes)
+    w = 1.0 / np.arange(1, B + 1)
+    w /= w.sum()
+    srcs = rng.choice(B, size=n_reads, p=w)
+    names, reads = [], []
+    for i, b in enumerate(srcs):
+        p = int(rng.integers(0, C5_BIN_LEN - READ_LEN - 1))
+        r = genomes[b][p : p + READ_LEN].copy()
+        for _ in range(int(rng.integers(0, 4))):
+            j = int(rng.integers(0, READ_LEN))
+            r[j] = (r[j] + 1 + int(rng.integers(0, 3))) % 4
+        if i % 2:
+            r = revcomp(r)
+        names.append(f"r{i}b{b}")
+        reads.append(r)
+    return ReadBatch.from_reads(names, reads)
+
+
+def phase_flat_chunk(mapper, cpu_mapper, batch, card):
+    """One flat mesh step (classify, route, flat map) of a whole batch on
+    the CPU and on the card, outputs identical and no host sync on the
+    card; its time, its peak memory and its profile."""
+    import torch
+
+    from dream_yara_tpu_torch.ops.device_index import to_device
+    from dream_yara_tpu_torch.parallel.dist_mapper import pack_batch_blob
+    from dream_yara_tpu_torch.pipeline.map_step import (max_seed_len_static,
+                                                        uniform_len_ok)
+    from dream_yara_tpu_torch.pipeline.seeding import rate_to_ppm
+
+    rate_ppm = rate_to_ppm(ERROR_RATE)
+    n = batch.n_reads
+    blob, half = pack_batch_blob(batch.seqs[:n], batch.lengths, 1, READ_LEN)
+    blob = blob.view(np.int32)
+    r_cap = mapper._r_cap(half)
+    step = mapper._step(half, READ_LEN, r_cap, rate_ppm, 3,
+                        max_seed_len_static(READ_LEN, rate_ppm),
+                        uniform_len_ok(batch.lengths, READ_LEN, rate_ppm, 3),
+                        *mapper._caps())
+    outs = {}
+    for name, m in (("cpu", cpu_mapper), ("cuda", mapper)):
+        blob_d = to_device(blob, m.device)
+        t0 = time.perf_counter()
+        if name == "cuda":
+            out, syncs = _no_sync(lambda: step(m.fmset, m.filter_words, blob_d))
+        else:
+            out, syncs = step(m.fmset, m.filter_words, blob_d), []
+        outs[name] = [x.cpu().numpy() for x in out]
+        log(f"[flat] {name}: flat step on {n} reads (pool {r_cap}) in "
+            f"{time.perf_counter() - t0:.3f} s (host clock, incl. fetch); host "
+            f"syncs flagged inside the step: {len(syncs)}")
+        if syncs:
+            raise AssertionError(f"the flat step synchronised: {syncs[0].message}")
+    for k, (a, b) in enumerate(zip(outs["cpu"], outs["cuda"])):
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError(f"flat step output {k} differs between CPU and CUDA")
+    log(f"[flat] CPU and CUDA outputs identical (all {len(outs['cpu'])} fields, "
+        f"{int((outs['cpu'][2] < 0).sum())} ok lanes)")
+    del outs
+
+    blob_d = to_device(blob, mapper.device)
+    run = lambda: step(mapper.fmset, mapper.filter_words, blob_d)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    ms = cuda_time_ms(run, 3)
+    log(f"[flat] full step ({n} reads, pool {r_cap} slots, {2 * r_cap} rows): "
+        f"{ms} ms on the card, 0 host syncs; peak memory above the resident set "
+        f"{peak} bytes ({peak / 2**20:.1f} MiB) ({card})")
+    profile_step(f"config-5 flat step ({n} reads)", run, card)
+    return ms
+
+
+def phase_config5(card):
+    """The slice's path: the config-5 database streamed through the flat
+    multi-bin step (mesh_dream_stream on one card). Returns its launches."""
+    import torch
+
+    from dream_yara_tpu_torch._shared import MapperOptions, StageTimers
+    from dream_yara_tpu_torch.parallel.dream_mesh import (MeshDreamMapper,
+                                                          mesh_dream_sam,
+                                                          mesh_dream_stream)
+    from dream_yara_tpu_torch.pipeline.dis_mapper import (DreamIndex,
+                                                          classify_reads,
+                                                          dream_map_stream)
+    from dream_yara_tpu_torch.pipeline.mapper import CHUNK_SIZES
+
+    log(f"[config-5] cuts: {C5_N_BATCHES} x {C5_BATCH} reads streamed once after "
+        f"one warm-up batch (the bench streams 200,000 reads x 5 passes after "
+        f"two warm-ups); widths unchanged")
+    genomes, stores, fms, ibf = build_config5()
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(11)
+    warm = make_batch5(genomes, C5_BATCH, rng)
+    batches = [make_batch5(genomes, C5_BATCH, rng) for _ in range(C5_N_BATCHES)]
+    log(f"[config-5] simulated {C5_N_BATCHES + 1} x {C5_BATCH} reads in "
+        f"{time.perf_counter() - t0:.1f} s")
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    opts = MapperOptions(error_rate=ERROR_RATE)
+    index = DreamIndex(stores, fms, ibf, "bloom", device=dev)
+    t0 = time.perf_counter()
+    mapper = MeshDreamMapper(index, opts)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    log(f"[config-5] stacked set and filter on the card in "
+        f"{time.perf_counter() - t0:.1f} s: {resident} bytes "
+        f"({resident / 2**20:.1f} MiB), q={mapper.prefix_q}")
+    t0 = time.perf_counter()
+    list(mesh_dream_stream(mapper, [warm]))
+    torch.cuda.synchronize()
+    log(f"[config-5] warm-up batch: {time.perf_counter() - t0:.3f} s; "
+        f"fallback_diag {mapper.fallback_diag}")
+
+    cpu_index = DreamIndex(stores, fms, ibf, "bloom", device=cpu)
+    cpu_mapper = MeshDreamMapper(cpu_index, opts)
+    flat_ms = phase_flat_chunk(mapper, cpu_mapper, warm, card)
+
+    n_total = C5_N_BATCHES * C5_BATCH
+    timers = StageTimers()
+    stats: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    sams = list(mesh_dream_stream(mapper, iter(batches), timers=timers,
+                                  stats=stats))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    diag = dict(mapper.fallback_diag)
+    log(f"[config-5] flat stream: {n_total} reads in {wall:.3f} s = "
+        f"{n_total / wall:.1f} reads/s ({card}); mapped {stats['mapped']} "
+        f"({100 * stats['mapped'] / n_total:.3f} %), unique {stats['unique']}; "
+        f"routed pairs per read {diag['routed'] / (n_total + C5_BATCH):.5f}; "
+        f"fallback_diag {diag}")
+    log(f"[config-5] peak device memory {peak} bytes ({peak / 2**20:.1f} MiB) ({card})")
+    log(f"[config-5] stage timers ({card}):\n{timers.report()}")
+    log(f"[config-5] kernel launches in the flat stream: {launches}")
+    if stats["mapped"] < 0.99 * n_total:
+        raise AssertionError(f"only {stats['mapped']} of {n_total} reads mapped")
+    if min(launches[k] for k in ("banded_verify_stacked", "row_gather")) == 0:
+        raise AssertionError(f"the flat stream skipped a kernel: {launches}")
+
+    # the per-bin path on the first batch (a warm-up run uploads its bins);
+    # its device rows: each routed bin's reads padded to a CHUNK_SIZES shape
+    def chunk_rows(k: int) -> int:          # BinMapper's chunks of k reads
+        cs = next((c for c in CHUNK_SIZES if 2 * k <= c), CHUNK_SIZES[-1])
+        return -(-k // (cs // 2)) * cs
+
+    routed = classify_reads(index, batches[0], opts).sum(axis=0)
+    rows = sum(chunk_rows(int(k)) for k in routed if k)
+    log(f"[config-5] device rows per read: per-bin path {rows / C5_BATCH:.3f} "
+        f"({int((routed > 0).sum())} routed bins, chunks of {CHUNK_SIZES}), flat "
+        f"path {2 * mapper._r_cap(C5_BATCH) / C5_BATCH:.3f} (the slot pool)")
+    list(dream_map_stream(index, [batches[0]], opts))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    per_bin = list(dream_map_stream(index, [batches[0]], opts))
+    torch.cuda.synchronize()
+    t_bin = time.perf_counter() - t0
+    if per_bin[0] != sams[0]:
+        raise AssertionError("config-5 SAM differs between the flat and the "
+                             "per-bin path")
+    log(f"[config-5] per-bin path (dream_map_stream), one batch: {t_bin:.3f} s = "
+        f"{C5_BATCH / t_bin:.1f} reads/s against the flat stream's "
+        f"{n_total / wall:.1f}; SAM byte-identical ({len(per_bin[0])} bytes) ({card})")
+
+    sub = sub_batch(batches[1], np.arange(C5_CPU_READS))
+    card_sam = mesh_dream_sam(mapper, sub, cmdline="config-5")
+    t0 = time.perf_counter()
+    if mesh_dream_sam(cpu_mapper, sub, cmdline="config-5") != card_sam:
+        raise AssertionError("config-5 SAM differs between the card and the CPU")
+    log(f"[config-5] {C5_CPU_READS}-read subsample: flat-path SAM identical on the "
+        f"card and on the CPU ({len(card_sam)} bytes; CPU run "
+        f"{time.perf_counter() - t0:.1f} s)")
+    del cpu_mapper, cpu_index
+    return launches, flat_ms
+
+
+def phase_config2_mesh(index, opts, batch, card):
+    """Config-2 through the flat step: one batch of C2_MESH_PAIRS pairs
+    (PE, rescue, the blocked canonical IBF), SAM equal to the per-bin SAM."""
+    import torch
+
+    from dream_yara_tpu_torch.parallel.dream_mesh import (MeshDreamMapper,
+                                                          mesh_dream_sam)
+    from dream_yara_tpu_torch.pipeline.dis_mapper import dream_map_sam
+
+    pids = np.arange(C2_MESH_PAIRS)
+    sub = sub_batch(batch, np.concatenate([pids, batch.n_reads // 2 + pids]),
+                    paired=True)
+    t0 = time.perf_counter()
+    per_bin = dream_map_sam(index, sub, opts, cmdline="c2")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    mapper = MeshDreamMapper(index, opts)
+    mesh_dream_sam(mapper, sub, cmdline="c2")             # warm-up
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    flat = mesh_dream_sam(mapper, sub, cmdline="c2")
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    if flat != per_bin:
+        raise AssertionError("config-2 --mesh SAM differs from the per-bin SAM")
+    log(f"[config-2 mesh] {C2_MESH_PAIRS} pairs: flat-path SAM identical to the "
+        f"per-bin SAM ({len(flat)} bytes); flat {t3 - t2:.3f} s, per-bin "
+        f"{t1 - t0:.3f} s (host clock) ({card}); fallback_diag "
+        f"{mapper.fallback_diag}")
+    del mapper
+    torch.cuda.empty_cache()
+
+
+def phase_cli(card):
+    """The port's mapper CLI as a user runs it: a small database written by
+    the shared indexer and build-filter tools, then SE and PE FASTQ mapped
+    by `python -m dream_yara_tpu_torch.cli.mapper_cli` on the card
+    (DY_PLATFORM unset), default path and --mesh; every output file equals
+    the in-process SAM."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from dream_yara_tpu_torch._shared import (FastqBatchReader, MapperOptions,
+                                              run_build_filter, run_indexer,
+                                              write_fasta)
+    from dream_yara_tpu_torch.pipeline.dis_mapper import (DreamIndex,
+                                                          dream_map_stream)
+
+    rng = np.random.default_rng(3)
+    code = np.frombuffer(b"ACGTN", np.uint8)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        genomes = [rng.integers(0, 4, CLI_BIN_LEN).astype(np.int8)
+                   for _ in range(CLI_BINS)]
+        for b, g in enumerate(genomes):
+            write_fasta(tmp / f"bin{b}.fa", [f"g{b}"], [g])
+        t0 = time.perf_counter()
+        run_indexer(["--bins-dir", str(tmp), "-o", str(tmp / "db")])
+        run_build_filter(["--bins-dir", str(tmp), "-o", str(tmp / "db"),
+                           "-bs", "16m", "-k", "19"])
+        log(f"[cli] indexer and build-filter: {CLI_BINS} bins x {CLI_BIN_LEN} bp "
+            f"in {time.perf_counter() - t0:.1f} s")
+
+        def fastq(path, rows, tag):
+            with open(path, "wb") as fh:
+                for i, r in enumerate(rows):
+                    fh.write(b"@%s%d\n%s\n+\n%s\n" % (tag, i, code[r].tobytes(),
+                                                      b"I" * len(r)))
+
+        def window(b, p):
+            return genomes[b][p : p + READ_LEN].copy()
+
+        b_of = rng.integers(0, CLI_BINS, CLI_READS)
+        p_of = rng.integers(0, CLI_BIN_LEN - 400, CLI_READS)
+        fastq(tmp / "se.fq", [window(b, p) for b, p in zip(b_of, p_of)], b"s")
+        fastq(tmp / "r1.fq", [window(b, p) for b, p in zip(b_of, p_of)], b"p")
+        fastq(tmp / "r2.fq", [np.where(w[::-1] < 4, 3 - w[::-1], w[::-1])
+                              for w in (window(b, p + 200)
+                                        for b, p in zip(b_of, p_of))], b"p")
+        env = {k: v for k, v in os.environ.items() if k != "DY_PLATFORM"}
+        env["PYTHONPATH"] = str(Path(__file__).resolve().parent)
+        index = DreamIndex.load(tmp / "db", device=torch.device("cuda"))
+        for mode, reads in (("SE", ["se.fq"]), ("PE", ["r1.fq", "r2.fq"])):
+            for mesh in ([], ["--mesh"]):
+                args = ["db", *reads, "-o", "out.sam", "-e", "0.03", "-ll", "300",
+                        "-ld", "50", *mesh]
+                t0 = time.perf_counter()
+                r = subprocess.run([sys.executable, "-m",
+                                    "dream_yara_tpu_torch.cli.mapper_cli", *args],
+                                   cwd=tmp, env=env, capture_output=True,
+                                   text=True, timeout=600)
+                if r.returncode != 0:
+                    raise AssertionError(f"CLI {mode} {mesh} failed:\n{r.stderr}")
+                got = (tmp / "out.sam").read_bytes()
+                opts = MapperOptions(error_rate=0.03, library_length=300,
+                                     library_deviation=50)
+                want = b"".join(dream_map_stream(
+                    index, FastqBatchReader(*(str(tmp / f) for f in reads),
+                                            batch_size=100_000),
+                    opts, cmdline=" ".join(args)))
+                if got != want:
+                    raise AssertionError(f"CLI {mode} {mesh} output differs from "
+                                         f"the in-process SAM")
+                log(f"[cli] {mode} {' '.join(mesh) or 'default'}: {len(got)} bytes, "
+                    f"identical to the in-process SAM; subprocess "
+                    f"{time.perf_counter() - t0:.1f} s; "
+                    f"{r.stderr.strip().splitlines()[0]} ({card})")
+
+
 def main() -> int:
     import torch
 
@@ -983,6 +1383,7 @@ def main() -> int:
 
     gather_entries = phase_gather(card)
     verify_entry = phase_verify(store.text, card)
+    stacked_entry = phase_stacked_verify(card)
 
     t0 = time.perf_counter()
     full = simulate_reads(store, N_BATCHES * BATCH)
@@ -996,17 +1397,23 @@ def main() -> int:
 
     by_path["config-2"] = phase_config2(card)
     by_path["rep-rich"] = phase_rep_rich(card)
-    # `launches` is each entry's own path's count: the repeat-rich shapes
-    # that path's, the others config-2's
+    by_path["config-5"], flat_ms = phase_config5(card)
+    phase_cli(card)
+    # `launches` is each entry's own path's count: the stacked verify the
+    # config-5 flat stream's, the repeat-rich gather shapes that path's,
+    # the others config-2's
     verify_entry["launches"] = by_path["config-2"]["banded_verify"]
+    stacked_entry["launches"] = by_path["config-5"]["banded_verify_stacked"]
     for e in gather_entries:
         path = "rep-rich" if e["shape"].startswith("rep-rich") else "config-2"
         e["launches"] = by_path[path]["row_gather"]
-    for e in (verify_entry, *gather_entries):
-        key = "row_gather" if e["name"] == "row_gather" else "banded_verify"
-        e["launches_by_path"] = {p: c[key] for p, c in by_path.items()}
+    for e in (verify_entry, stacked_entry, *gather_entries):
+        key = e["name"]
+        e["launches_by_path"] = {p: c[key] for p, c in by_path.items() if key in c}
+    stacked_entry["flat_step_ms"] = flat_ms
     log(f"[done] smoke run {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [verify_entry, *gather_entries]}), flush=True)
+    print(json.dumps({"kernels": [verify_entry, stacked_entry, *gather_entries]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -17,13 +17,17 @@ process still finds `BinMapper`, `map_single_bin` and the rest. A lazy
 `build_reverse_fused` (index/bifm.py) takes `build_fused_rank_rows` from
 the reference's ops/rank.py, a JAX module; where that module is not loaded,
 the call lends it the port's numpy copy (ops/rank.py), so building a
-bidirectional sidecar imports no JAX.
+bidirectional sidecar imports no JAX. `run_indexer` runs the shared indexer
+CLI the same way: it takes `bin_file` from the reference's
+pipeline/dis_mapper.py, and is lent the port's. `run_build_filter` runs the
+shared build-filter CLI, which imports only host modules.
 
 Every port module takes shared host names from here.
 """
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 import importlib.util
 import sys
@@ -72,14 +76,18 @@ def _install_pipeline_package() -> None:
 _install_pipeline_package()
 
 # ruff: noqa: E402 — the imports below need the package installed above
+from dream_yara_tpu.cli.common import cli_guard, open_output
 from dream_yara_tpu.golden.golden_mapper import golden_map_se
 from dream_yara_tpu.index import bifm as _bifm
-from dream_yara_tpu.index.fmindex import BLOCK, FMIndex
+from dream_yara_tpu.index.fmindex import BLOCK, BWT_PAD, FMIndex
 from dream_yara_tpu.index.hashing import BLOCK_WORDS, HASH_SEEDS, MIX_MULT
 from dream_yara_tpu.index.ibf import InterleavedBloomFilter
 from dream_yara_tpu.index.kdx import DirectKmerFilter
+from dream_yara_tpu.io.fasta import write_fasta
+from dream_yara_tpu.io.fastq import FastqBatchReader
 from dream_yara_tpu.io.readstore import ReadBatch
 from dream_yara_tpu.io.seqstore import SeqStore
+from dream_yara_tpu.io.shards import drive_sharded_stream
 from dream_yara_tpu.pipeline.cigar import compute_cigars
 from dream_yara_tpu.pipeline.matches import (Matches, Ranked, build_matches,
                                              dedup_matches, rank_matches)
@@ -92,36 +100,64 @@ from dream_yara_tpu.utils.simulate import repeat_rich_genome, sample_reads
 from dream_yara_tpu.utils.timer import StageTimers
 
 _RANK = "dream_yara_tpu.ops.rank"
+_DIS_MAPPER = "dream_yara_tpu.pipeline.dis_mapper"
+
+
+@contextlib.contextmanager
+def _lent(name: str, **attrs):
+    """While the reference's JAX module `name` is not loaded, a stand-in
+    module holding only `attrs` answers its import. Nothing in the port
+    imports those modules, so no other import can meet the stand-in."""
+    if name in sys.modules:
+        yield
+        return
+    stand_in = types.ModuleType(name)
+    stand_in.__dict__.update(attrs)
+    sys.modules[name] = stand_in
+    try:
+        yield
+    finally:
+        if sys.modules.get(name) is stand_in:
+            del sys.modules[name]
 
 
 def build_reverse_fused(text, tmp_dir: str | None = None):
-    """index/bifm.py::build_reverse_fused: (rfused, rcounts) of reverse(text).
-
-    When the reference's ops/rank.py is not loaded, a stand-in module that
-    holds only the port's `build_fused_rank_rows` (the same numpy code)
-    answers its import for the length of the call. Nothing in the port
-    imports that module, so no other import can meet the stand-in."""
-    if _RANK in sys.modules:
-        return _bifm.build_reverse_fused(text, tmp_dir=tmp_dir)
+    """index/bifm.py::build_reverse_fused: (rfused, rcounts) of reverse(text),
+    lent the port's numpy `build_fused_rank_rows`."""
     from .ops.rank import build_fused_rank_rows
 
-    stand_in = types.ModuleType(_RANK)
-    stand_in.build_fused_rank_rows = build_fused_rank_rows
-    sys.modules[_RANK] = stand_in
-    try:
+    with _lent(_RANK, build_fused_rank_rows=build_fused_rank_rows):
         return _bifm.build_reverse_fused(text, tmp_dir=tmp_dir)
-    finally:
-        if sys.modules.get(_RANK) is stand_in:
-            del sys.modules[_RANK]
+
+
+def run_indexer(argv: list[str]) -> None:
+    """The shared indexer CLI (dream-yara-tpu-indexer) without JAX: it is
+    lent the port's `bin_file` (same paths) and `build_fused_rank_rows`."""
+    from dream_yara_tpu.cli import indexer
+
+    from .ops.rank import build_fused_rank_rows
+    from .pipeline.dis_mapper import bin_file
+
+    with _lent(_DIS_MAPPER, bin_file=bin_file), \
+            _lent(_RANK, build_fused_rank_rows=build_fused_rank_rows):
+        indexer.main(argv)
+
+
+def run_build_filter(argv: list[str]) -> None:
+    """The shared build-filter CLI (dream-yara-tpu-build-filter)."""
+    from dream_yara_tpu.cli import build_filter
+
+    build_filter.main(argv)
 
 
 __all__ = [
-    "BLOCK", "BLOCK_WORDS", "DirectKmerFilter", "FMIndex", "GlobalContigs",
-    "HASH_SEEDS", "InterleavedBloomFilter", "MIX_MULT", "MapperOptions",
-    "Matches", "Ranked", "ReadBatch", "SeqStore", "StageTimers",
-    "build_matches", "build_reverse_fused", "compute_cigars",
-    "dedup_matches", "golden_map_se",
+    "BLOCK", "BLOCK_WORDS", "BWT_PAD", "DirectKmerFilter", "FMIndex",
+    "FastqBatchReader", "GlobalContigs", "HASH_SEEDS",
+    "InterleavedBloomFilter", "MIX_MULT", "MapperOptions", "Matches",
+    "Ranked", "ReadBatch", "SeqStore", "StageTimers",
+    "build_matches", "build_reverse_fused", "cli_guard", "compute_cigars",
+    "dedup_matches", "drive_sharded_stream", "golden_map_se", "open_output",
     "rank_matches", "repeat_rich_genome", "rescue_candidates", "revcomp",
-    "sample_reads", "sam_header", "select_pairs", "write_pe_records",
-    "write_se_records",
+    "run_build_filter", "run_indexer", "sample_reads", "sam_header",
+    "select_pairs", "write_fasta", "write_pe_records", "write_se_records",
 ]

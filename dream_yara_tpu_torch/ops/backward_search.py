@@ -19,7 +19,8 @@ def seed_search(fused: torch.Tensor, counts: torch.Tensor, n,
                 slens: torch.Tensor, max_seed_len: int,
                 pfx_lo: torch.Tensor | None = None,
                 pfx_hi: torch.Tensor | None = None, prefix_q: int = 0,
-                chars_fe: torch.Tensor | None = None):
+                chars_fe: torch.Tensor | None = None,
+                seed_bin: torch.Tensor | None = None):
     """Exact backward search of variable-length seeds cut from the read matrix.
 
     reads: (R2, L) int8; rows/starts/slens: (S,) int32 — seed s is
@@ -37,6 +38,11 @@ def seed_search(fused: torch.Tensor, counts: torch.Tensor, n,
     `chars_fe` (optional, (S, max_seed_len) int8): seed chars indexed from
     the seed's end, built without gathers on the uniform-length fast path.
 
+    `seed_bin` (optional, (S,) int32): the flat multi-bin step's per-seed
+    bin. The tables are then per-bin stacks — fused (B, nb1, 24), counts
+    (B, SIGMA + 1), n (B,), pfx_lo/pfx_hi (B, 4^q) — and seed s reads bin
+    seed_bin[s]: its rank rows at bin * nb1 + block of the flattened rows.
+
     Returns (lo, hi, m_start): (S,) int32 each — the SA interval [lo, hi)
     and the true read-index start of the matched part."""
     S = rows.shape[0]
@@ -48,7 +54,19 @@ def seed_search(fused: torch.Tensor, counts: torch.Tensor, n,
     def read_chars(idx):
         return flat[row_base + idx.clamp(0, L - 1).long()].to(torch.int32)
 
-    n_vec = torch.as_tensor(n, dtype=torch.int32, device=dev).expand(S)
+    if seed_bin is None:
+        n_vec = torch.as_tensor(n, dtype=torch.int32, device=dev).expand(S)
+        rank_base, count_base, pfx_base = None, 0, 0
+    else:
+        sb = seed_bin.long()
+        n_vec = n[sb]
+        rb = sb * fused.shape[1]
+        rank_base = torch.cat([rb, rb])
+        count_base = sb * counts.shape[1]
+        pfx_base = 0 if pfx_lo is None else sb * pfx_lo.shape[-1]
+        fused = fused.reshape(-1, fused.shape[-1])
+    nsig = counts.shape[-1]
+    counts = counts.reshape(-1)
     lo = torch.zeros(S, dtype=torch.int32, device=dev)
     hi = torch.where(slens > 0, n_vec, 0)
     consumed0 = torch.zeros(S, dtype=torch.int32, device=dev)
@@ -67,8 +85,9 @@ def seed_search(fused: torch.Tensor, counts: torch.Tensor, n,
                 c = read_chars(starts + slens - q + t)
             ok_tab = ok_tab & (c < 4)
             m_idx = (m_idx << 2) | (c & 3).long()
-        lo = torch.where(ok_tab, pfx_lo[m_idx], lo)
-        hi = torch.where(ok_tab, pfx_hi[m_idx], hi)
+        m_idx = pfx_base + m_idx
+        lo = torch.where(ok_tab, pfx_lo.reshape(-1)[m_idx], lo)
+        hi = torch.where(ok_tab, pfx_hi.reshape(-1)[m_idx], hi)
         consumed0 = torch.where(ok_tab, q, 0).to(torch.int32)
 
     for t in range(max_seed_len):
@@ -82,8 +101,8 @@ def seed_search(fused: torch.Tensor, counts: torch.Tensor, n,
                 c = torch.where(consumed0 > 0, cb, c)
         else:
             c = read_chars(starts + slens - 1 - tt)
-        ranks = rank_fused(fused, c.repeat(2), torch.cat([lo, hi]))
-        cc = counts[c.long().clamp(0, counts.shape[0] - 1)]
+        ranks = rank_fused(fused, c.repeat(2), torch.cat([lo, hi]), rank_base)
+        cc = counts[count_base + c.long().clamp(0, nsig - 1)]
         upd = active & (lo < hi)
         lo = torch.where(upd, cc + ranks[:S], lo)
         hi = torch.where(upd, cc + ranks[S:], hi)
@@ -104,8 +123,11 @@ def gather_hit_rows(lo: torch.Tensor, hi: torch.Tensor, capacity: int):
 
 
 def gather_hits(sa: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
-                capacity: int):
+                capacity: int, seed_bin: torch.Tensor | None = None):
     """Expand SA intervals into text positions with a per-seed capacity.
+
+    With `seed_bin` (S,), `sa` is the (B, max_sa) stack of the flat
+    multi-bin step and seed s reads its bin's row (int64 offsets).
 
     Returns (positions, mask, overflow):
       positions: (S, capacity) int32 text positions (0 where ~mask)
@@ -114,6 +136,9 @@ def gather_hits(sa: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
     offs = torch.arange(capacity, device=lo.device, dtype=torch.int32)
     idx = lo[:, None] + offs[None, :]
     mask = idx < hi[:, None]
-    pos = sa[idx.clamp(0, sa.shape[0] - 1).long()]
+    idx = idx.clamp(0, sa.shape[-1] - 1).long()
+    if seed_bin is not None:
+        idx = (seed_bin.long() * sa.shape[1])[:, None] + idx
+    pos = sa.reshape(-1)[idx]
     overflow = (hi - lo - capacity).clamp(min=0)
     return torch.where(mask, pos, 0), mask, overflow

@@ -270,38 +270,59 @@ def classify_thresholds(lengths2, n_sel, k: int, window: int, rate_ppm: int,
     return torch.clamp((lengths2 - k + 1) - k * e, min=1)
 
 
-def ibf_classify_packed(filter_words, blob, slack_table=None, *, half: int,
-                        L: int, k: int, n_hashes: int, rate_ppm: int,
-                        window: int = 0, canonical: bool = False,
-                        blocked: bool = False, direct: bool = False,
-                        n_bins: int = 0, block_s: int = 0) -> torch.Tensor:
-    """Candidate mask of a chunk from its packed read blob (held as int32):
-    count (selected) k-mers per bin, threshold, OR the two orientations
-    (canonical filters count forward rows only) and bit-pack the
-    (reads, bins) mask. Returns (half, Bp/32) int32 words with the
-    reference's uint32 bits."""
-    packed, nmask, lengths = unpack_blob(blob, half, L)
+def routing_from_counts(counts, n_sel, lengths2, k: int, window: int,
+                        rate_ppm: int, half: int, slack_table=None):
+    """Candidate mask of (fwd | rc) rows' counts: each row against its
+    threshold, then the OR of a read's two orientations. (half, Bp) bool."""
+    thr = classify_thresholds(lengths2, n_sel, k, window, rate_ppm,
+                              slack_table)
+    mask = counts >= thr[:, None]
+    return mask[:half] | mask[half:]
+
+
+def ibf_candidates(filter_words, reads, lengths, slack_table=None, *,
+                   half: int, k: int, n_hashes: int, rate_ppm: int,
+                   window: int = 0, canonical: bool = False,
+                   blocked: bool = False, direct: bool = False,
+                   n_bins: int = 0, block_s: int = 0) -> torch.Tensor:
+    """(half, Bp) candidate mask of `half` reads: count (selected) k-mers
+    per bin and threshold. reads: the [fwd | rc] rows; a canonical filter
+    counts the forward rows only (they answer both orientations), so
+    `reads` may then hold just those."""
     if canonical:
-        fwd = unpack_fwd(packed, nmask, lengths, L)
-        counts, n_sel = ibf_bin_counts(filter_words, fwd, lengths, k,
+        counts, n_sel = ibf_bin_counts(filter_words, reads[:half], lengths, k,
                                        n_hashes, window, canonical=True,
                                        blocked=blocked, n_bins=n_bins,
                                        block_s=block_s)
         thr = classify_thresholds(lengths, n_sel, k, window, rate_ppm,
                                   slack_table)
-        cand = counts >= thr[:, None]
-    else:
-        reads = unpack_reads(packed, nmask, lengths, L)
-        lengths2 = torch.cat([lengths, lengths])
-        counts, n_sel = ibf_bin_counts(filter_words, reads, lengths2, k,
-                                       n_hashes, window, blocked=blocked,
-                                       direct=direct, n_bins=n_bins,
-                                       block_s=block_s)
-        thr = classify_thresholds(lengths2, n_sel, k, window, rate_ppm,
-                                  slack_table)
-        mask = counts >= thr[:, None]
-        cand = mask[:half] | mask[half:]
-    w = cand.shape[1] // 32
-    bits = cand.reshape(half, w, 32).long()
+        return counts >= thr[:, None]
+    lengths2 = torch.cat([lengths, lengths])
+    counts, n_sel = ibf_bin_counts(filter_words, reads, lengths2, k, n_hashes,
+                                   window, blocked=blocked, direct=direct,
+                                   n_bins=n_bins, block_s=block_s)
+    return routing_from_counts(counts, n_sel, lengths2, k, window, rate_ppm,
+                               half, slack_table)
+
+
+def ibf_classify_packed(filter_words, blob, slack_table=None, *, half: int,
+                        L: int, canonical: bool = False, **kw) -> torch.Tensor:
+    """Candidate mask of a chunk from its packed read blob (held as int32),
+    bit-packed: (half, Bp/32) int32 words with the reference's uint32 bits.
+    kw: ibf_candidates' filter parameters."""
+    packed, nmask, lengths = unpack_blob(blob, half, L)
+    unpack = unpack_fwd if canonical else unpack_reads
+    reads = unpack(packed, nmask, lengths, L)
+    return pack_mask_bits(ibf_candidates(filter_words, reads, lengths,
+                                         slack_table, half=half,
+                                         canonical=canonical, **kw))
+
+
+def pack_mask_bits(cand: torch.Tensor) -> torch.Tensor:
+    """(n, B) bool -> (n, ceil(B/32)) int32 words holding the uint32 bits,
+    bin j at bit j % 32 of word j // 32."""
+    n, B = cand.shape
+    w = (B + 31) // 32
+    bits = F.pad(cand, (0, w * 32 - B)).reshape(n, w, 32).long()
     shifts = torch.arange(32, device=bits.device, dtype=torch.int64)
     return int32_bits((bits << shifts).sum(dim=2))

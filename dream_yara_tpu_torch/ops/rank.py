@@ -73,14 +73,20 @@ def rank(bwt_blocks: torch.Tensor, occ: torch.Tensor, c: torch.Tensor,
     return base + torch.where(b < nb, within, 0)
 
 
-def rank_fused(fused: torch.Tensor, c: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+def rank_fused(fused: torch.Tensor, c: torch.Tensor, i: torch.Tensor,
+               row_base: torch.Tensor | None = None) -> torch.Tensor:
     """Occurrences of symbol c[q] in bwt[0 : i[q]) for each query q.
 
     fused: (n_blocks + 1, 24) int32; c, i: (Q,) int32 with 0 <= i <= n.
-    Returns (Q,) int32. The rows are fetched by the row-gather kernel on a
-    card (ops/row_gather_cuda.py)."""
+    `row_base` (Q,) int64: per-query row offset into a flattened stack of
+    several bins' rows (the flat multi-bin step). Returns (Q,) int32. The
+    rows are fetched by the row-gather kernel on a card
+    (ops/row_gather_cuda.py)."""
     r = i & (BLOCK - 1)
-    return rank_fused_rows(gather_rows(fused, i >> _LOG2_BLOCK), c, r)
+    b = i >> _LOG2_BLOCK
+    if row_base is not None:
+        b = row_base + b
+    return rank_fused_rows(gather_rows(fused, b), c, r)
 
 
 def _words(row: torch.Tensor) -> torch.Tensor:

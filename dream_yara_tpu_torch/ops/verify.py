@@ -11,6 +11,11 @@ strictly better (so the closest origin wins), and the final argmin takes
 the smallest diagonal. `begin` is carried through the DP, so there is no
 traceback. A lane whose optimum leaves the band reports dist >= INF/2; a
 length-0 lane reports (INF, 0, 0).
+
+The stacked-text edition (the flat multi-bin step) takes the (B, n_text)
+text stack with a bin per lane and each bin's length: a lane's window then
+reads its own bin's row, and positions outside [0, n of that bin) read as
+out-of-text. The single-bin call is the case without them.
 """
 
 from __future__ import annotations
@@ -22,18 +27,21 @@ OUT_OF_TEXT = 6  # the code a window position outside [0, n) reads as
 
 
 def banded_verify(text: torch.Tensor, anchors: torch.Tensor, reads: torch.Tensor,
-                  read_rows: torch.Tensor, lengths: torch.Tensor, max_err: int):
+                  read_rows: torch.Tensor, lengths: torch.Tensor, max_err: int,
+                  lane_bin: torch.Tensor | None = None,
+                  bin_n: torch.Tensor | None = None):
     """Verify candidates (read placed at text position `anchor` +- max_err).
 
-    text: (n,) int8; anchors: (C,) int32 claimed begin positions; reads:
-    (R2, L) int8 padded read matrix; read_rows: (C,) int32 row per
-    candidate (a row outside [0, R2) reads as all-N); lengths: (C,) int32;
-    max_err: band radius E.
+    text: (n,) int8, or with lane_bin the (B, n_text) stack; anchors: (C,)
+    int32 claimed begin positions; reads: (R2, L) int8 padded read matrix;
+    read_rows: (C,) int32 row per candidate (a row outside [0, R2) reads as
+    all-N); lengths: (C,) int32; max_err: band radius E; lane_bin: (C,)
+    int32 bin of each lane (clamped to [0, B)); bin_n: (B,) int32 bin
+    lengths.
 
     Returns (dist, begin, end): (C,) int32 each (end exclusive)."""
     C = anchors.shape[0]
     R2, L = reads.shape
-    n = text.shape[0]
     E = int(max_err)
     W = 2 * E + 1
     dev = anchors.device
@@ -46,8 +54,16 @@ def banded_verify(text: torch.Tensor, anchors: torch.Tensor, reads: torch.Tensor
 
     p = ((anchors.long() - E)[:, None]
          + torch.arange(L + 2 * E, device=dev, dtype=torch.int64)[None, :])
+    if lane_bin is None:
+        n, base = text.shape[0], 0
+    else:
+        b = lane_bin.long().clamp(0, text.shape[0] - 1)
+        n = bin_n.long()[b][:, None]
+        base = (b * text.shape[1])[:, None]       # int64: stacks pass 2^31
+    flat = text.reshape(-1)
     in_text = (p >= 0) & (p < n)
-    win = text[p.clamp(0, max(n - 1, 0))] if n > 0 else torch.zeros_like(p)
+    win = (flat[(base + p).clamp(0, flat.shape[0] - 1)] if flat.shape[0] > 0
+           else torch.zeros_like(p))
     wT = torch.where(in_text, win, OUT_OF_TEXT).t().to(i32)       # (L+2E, C)
 
     d_off = torch.arange(W, device=dev, dtype=i32)[:, None]

@@ -101,13 +101,19 @@ class DreamIndex:
                    rfused=rfused)
 
     def bin_mapper(self, b: int, opts: MapperOptions,
-                   timers: StageTimers | None = None) -> BinMapper:
+                   timers: StageTimers | None = None, dev_factory=None,
+                   prefix_q: int | None = None,
+                   sample_rate: int | None = None) -> BinMapper:
+        """Bin b's mapper, made at first use. `dev_factory` (returning a
+        DeviceFM already on the device, e.g. DeviceFMSet.bin(b)) and the
+        layout overrides apply only then."""
         with self._lock:
             if b not in self._bin_mappers:
-                self._bin_mappers[b] = BinMapper(self.stores[b], self.fms[b],
-                                                 opts, self.device,
-                                                 timers=timers,
-                                                 rfused=self.rfused.get(b))
+                self._bin_mappers[b] = BinMapper(
+                    self.stores[b], self.fms[b], opts, self.device,
+                    timers=timers, rfused=self.rfused.get(b),
+                    dev=dev_factory() if dev_factory else None,
+                    prefix_q=prefix_q, sample_rate=sample_rate)
             bm = self._bin_mappers[b]
         if timers is not None:
             bm.timers = timers

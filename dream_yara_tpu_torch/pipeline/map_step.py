@@ -5,8 +5,8 @@ PyTorch runs eagerly, so there is no jit and no static-shape contract, but
 the chunk shapes of the reference are kept because they bound device
 memory. The step never reads a device value on the host: every stage is
 masked tensor work, and only the caller's drain synchronises. On a sampled
-SA the hits are located by the LF walk (ops/locate.py). The mesh fetch
-hooks of the reference come with its multi-bin items.
+SA the hits are located by the LF walk (ops/locate.py). The multi-bin
+edition of this step is pipeline/flat_step.py.
 
 `repetitive_map_step` is the re-seed of rows whose exact seeds overflowed
 (sensitivity high/low). It compacts its valid hit lanes before locating
@@ -46,6 +46,10 @@ class MapStepOut(NamedTuple):
     overflow_total: torch.Tensor  # () int32
     n_spilled: torch.Tensor       # () int32 candidates dropped by compaction;
                                   # > 0 => the host re-runs the chunk densely
+    # true lane demands of the flat step, read by the mesh cap tuner: verify
+    # lanes wanted (kept + spilled) and locate lanes wanted (sampled SA)
+    v_need: torch.Tensor | None = None    # () int32
+    loc_need: torch.Tensor | None = None  # () int32
 
 
 def max_seed_len_static(max_len: int, rate_ppm: int) -> int:

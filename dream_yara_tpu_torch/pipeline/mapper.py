@@ -79,19 +79,25 @@ def verify_padded(dev: DeviceFM, reads_d: torch.Tensor, lens_d: torch.Tensor,
 class BinMapper:
     """Maps read batches against ONE bin (local coordinates) on `device`.
     `rfused`: the reverse-text fused rank rows (index/bifm.py), which
-    enable the bidirectional seed backend of the repetitive strata."""
+    enable the bidirectional seed backend of the repetitive strata.
+
+    `dev`: a DeviceFM already on `device` (a DeviceFMSet.bin view of the
+    flat step's stacked set) to use instead of an upload; `prefix_q` and
+    `sample_rate` must then describe that layout (the set's common q and
+    rate), and `rfused` is not used, as in the reference."""
 
     def __init__(self, store: SeqStore, fm: FMIndex, opts: MapperOptions,
                  device: torch.device, timers: StageTimers | None = None,
-                 rfused: np.ndarray | None = None):
+                 rfused: np.ndarray | None = None, dev: DeviceFM | None = None,
+                 prefix_q: int | None = None, sample_rate: int | None = None):
         self.store = store
         self.fm = fm
         self.opts = opts
         self.device = torch.device(device)
-        self.dev = DeviceFM.from_host(fm, store.text, self.device,
-                                      rfused=rfused)
-        self.prefix_q = fm.prefix_q
-        self.sample_rate = fm.sample_rate
+        self.dev = (DeviceFM.from_host(fm, store.text, self.device, rfused=rfused)
+                    if dev is None else dev)
+        self.prefix_q = fm.prefix_q if prefix_q is None else prefix_q
+        self.sample_rate = fm.sample_rate if sample_rate is None else sample_rate
         self.timers = timers or StageTimers()
 
     def map_batch(self, batch: ReadBatch, capacity: int = 8) -> Matches:

@@ -1,5 +1,7 @@
-"""Card-only tests of the port: the CUDA banded-verify and row-gather kernels
-against their plain PyTorch editions on the same card, exact equality
+"""Card-only tests of the port: the CUDA banded-verify kernel (single-bin
+and stacked-text entries) and the row-gather kernel against their plain
+PyTorch editions on the same card, and the sampled locate, the repetitive
+step and the flat mesh step on the card against the CPU; exact equality
 (integer outputs).
 
 Skips where there is no CUDA device. On a machine with a card and without
@@ -12,9 +14,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import edge_case, verify_case
 from dream_yara_tpu_torch.ops import (banded_verify_cuda, row_gather,
                                       row_gather_cuda, verify)
+from dream_yara_tpu_torch.verify_cases import (edge_case, stacked_case,
+                                               verify_case)
 
 pytestmark = pytest.mark.gpu
 
@@ -123,3 +126,65 @@ def test_repetitive_step_on_card_equals_cpu(cuda_device, rich_bin, backend,
     for g, w in zip(*outs):
         assert torch.equal(g, w)
     assert int(outs[0][4].sum()) > 0
+
+
+@pytest.mark.parametrize("lens,C,L,E,edges", [
+    ([400_001] * 16, 20_000, 100, 3, False),          # config-5's bins, fewer
+    ([2000 + 128 * b for b in range(5)], 4096, 100, 3, True),
+    ([3000, 1000, 2500], 2048, 150, 4, True),
+    ([5000, 7000], 1024, 120, 31, True)])
+def test_stacked_kernel_equals_plain_edition(cuda_device, lens, C, L, E, edges):
+    rng = np.random.default_rng(C + E)
+    text, bin_n, lane_bin, *case = (torch.from_numpy(a).to(cuda_device) for a in
+                                    stacked_case(rng, lens, C, L, E, edges))
+    v = banded_verify_cuda.kernel
+    before, stacked_before = v.launches, v.stacked_launches
+    got = banded_verify_cuda.banded_verify(text, *case, max_err=E,
+                                           lane_bin=lane_bin, bin_n=bin_n)
+    want = verify.banded_verify(text, *case, max_err=E, lane_bin=lane_bin,
+                                bin_n=bin_n)
+    torch.cuda.synchronize()
+    assert (v.launches, v.stacked_launches) == (before + 1, stacked_before + 1)
+    for g, w, name in zip(got, want, ["dist", "begin", "end"]):
+        assert torch.equal(g, w), name
+
+
+def test_flat_step_on_card_equals_cpu(cuda_device):
+    """One mesh step (classify, route, flat map) of a small bloom-filtered
+    database: the card's MeshMapOut equals the CPU's, and so do the SAMs."""
+    from dream_yara_tpu_torch._shared import (FMIndex, InterleavedBloomFilter,
+                                              MapperOptions, ReadBatch, SeqStore)
+    from dream_yara_tpu_torch.ops.device_index import to_device
+    from dream_yara_tpu_torch.parallel.dist_mapper import (fetch_mesh_out,
+                                                           pack_batch_blob)
+    from dream_yara_tpu_torch.parallel.dream_mesh import (MeshDreamMapper,
+                                                          mesh_dream_sam)
+    from dream_yara_tpu_torch.pipeline.dis_mapper import DreamIndex
+
+    rng = np.random.default_rng(12)
+    genomes = [rng.integers(0, 4, 50_000).astype(np.int8) for _ in range(6)]
+    stores = [SeqStore.from_seqs([f"g{b}"], [g]) for b, g in enumerate(genomes)]
+    fms = [FMIndex.build(st.text, sample_rate=4) for st in stores]
+    ibf = InterleavedBloomFilter.create(6, size_bits=1 << 24, n_hashes=3, k=19)
+    for b, g in enumerate(genomes):
+        ibf.add_kmers(g, b)
+    reads = []
+    for i in range(2000):
+        g = genomes[i % 6]
+        p = int(rng.integers(0, 49_900))
+        r = g[p : p + 100].copy()
+        r[int(rng.integers(0, 100))] = int(rng.integers(0, 4))
+        reads.append(r)
+    batch = ReadBatch.from_reads([f"r{i}" for i in range(2000)], reads)
+    opts = MapperOptions(error_rate=0.03)
+    blob, half = pack_batch_blob(batch.seqs[:2000], batch.lengths, 1, 100)
+    outs, sams = [], []
+    for dev in (cuda_device, torch.device("cpu")):
+        m = MeshDreamMapper(DreamIndex(stores, fms, ibf, "bloom", device=dev), opts)
+        step = m._step(half, 100, m._r_cap(half), 300, 3, 33, True, 4.0, 1.25)
+        outs.append(fetch_mesh_out(step(m.fmset, m.filter_words,
+                                        to_device(blob.view(np.int32), dev)))())
+        sams.append(mesh_dream_sam(m, batch))
+    for f, a, b in zip(outs[0]._fields, *outs):
+        np.testing.assert_array_equal(a, b, err_msg=f)
+    assert sams[0] == sams[1]
