@@ -10,15 +10,21 @@ mapper CLI, at full size, and fails (non-zero exit, no result line) on
 any error, when no CUDA device is present, or when the port cannot be
 imported. Phases:
 
-  1. card     — the card's name and power limit (nvidia-smi);
-  2. build    — nvcc builds both kernels from csrc/ at once (ptxas lines);
+  1. card     — the card's name and power limit, its clocks and the host's
+                CPU (nvidia-smi, /proc/cpuinfo); the card's clocks are
+                sampled again during each timed verify phase and stream;
+  2. build    — nvcc builds both kernels from csrc/ and g++ the port's six
+                native host libraries from native/, all at once (ptxas
+                lines; fails if a native library does not build);
   3. gather   — the row-gather kernel against its plain edition, exact
                 equality, at the probe shape of each TPU kernel it replaces,
                 at the config-2 and repeat-rich paths' shapes and on edge
-                indices; both times from CUDA events, in turns;
+                indices; both times from CUDA events, in turns, beside
+                index_select's and the bound;
   4. verify   — the banded-verify kernel against its plain edition at the
                 config-1 (L=100, E=3) and config-2 (L=150, E=4) shapes, at
-                L=250/E=12 and on edge lanes; then its stacked-text entry at
+                L=250/E=12 and on edge lanes, each time beside its bound;
+                then its stacked-text entry at
                 the config-5 shape (256 bins, 78,125 lanes), on edge layouts
                 of unequal bins, and with one bin against the single-bin
                 entry;
@@ -53,10 +59,11 @@ imported. Phases:
                 mesh_dream_stream (>= 99 % mapped);
                 one batch through the per-bin path, SAM byte-identical;
                 1,024 reads give the same SAM on the card and on the CPU;
- 10. cli      — the shared indexer and build-filter write a 4-bin database;
-                the port's CLI maps SE and PE FASTQ in a subprocess on the
-                card, default path and --mesh, each output equal to the
-                in-process SAM;
+ 10. cli      — the port's indexer and build-filter write a 4-bin database
+                (subprocesses); the port's CLI maps SE and PE FASTQ in a
+                subprocess on the card, default path and --mesh, each
+                output equal to the in-process SAM, and reports its kernel
+                launches;
  11. result   — the kernel table and the device line as JSON.
 
 Every number printed is measured in this run, on the card named beside it.
@@ -72,6 +79,11 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+
+from dream_yara_tpu_torch.verify_bench import (REPS, STACKED_SHAPES,
+                                               SHAPES as VERIFY_SHAPES,
+                                               ClockSampler, bound, card_line,
+                                               host_line, time_ms)
 
 GENOME_LEN = 4_600_000
 READ_LEN = 100
@@ -101,12 +113,12 @@ C5_BINS = 256                # tools/bench_config5.py's database and reads
 C5_BIN_LEN = 400_000
 C5_BATCH = 50_000
 C5_N_BATCHES = 4             # streamed once after one warm-up batch
-C5_VERIFY_LANES = 78_125     # cap2v = 1.25 x the pool of a 50,000-read batch
 C5_CPU_READS = 1_024
 C2_MESH_PAIRS = 16_384
 CLI_BINS = 4
 CLI_BIN_LEN = 200_000
 CLI_READS = 2_000
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory (NVIDIA data sheet)
 
 # (what, TPU kernel it replaces or None, rows, int32 words a row, queries,
 #  index dtype): the probe shape of each TPU kernel, then the config-2
@@ -132,34 +144,12 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
-
-
-def cuda_time_ms(fn, reps: int) -> float:
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    t1.synchronize()
-    return t0.elapsed_time(t1) / reps
-
-
 def in_turns(plain, kernel, plain_reps: int, kernel_reps: int):
     """Times (ms) in turns plain, kernel, kernel, plain."""
-    p1 = cuda_time_ms(plain, plain_reps)
-    k1 = cuda_time_ms(kernel, kernel_reps)
-    k2 = cuda_time_ms(kernel, kernel_reps)
-    p2 = cuda_time_ms(plain, plain_reps)
+    p1 = time_ms(plain, plain_reps)
+    k1 = time_ms(kernel, kernel_reps)
+    k2 = time_ms(kernel, kernel_reps)
+    p2 = time_ms(plain, plain_reps)
     return k1, k2, p1, p2
 
 
@@ -184,7 +174,7 @@ def reset_launch_counts() -> None:
 
 
 def sub_batch(batch, ids, paired=False):
-    from dream_yara_tpu_torch._shared import ReadBatch
+    from dream_yara_tpu_torch.io.readstore import ReadBatch
 
     n = batch.n_reads
     return ReadBatch(names=[batch.names[i] for i in ids],
@@ -194,15 +184,25 @@ def sub_batch(batch, ids, paired=False):
 
 
 def phase_build() -> None:
-    """Both kernel libraries, one nvcc each, started together."""
+    """Both kernel libraries (one nvcc each) and the port's native host
+    libraries (one g++ each), all started together. A native library that
+    does not build fails the run: the streams are timed on the native host
+    path."""
+    from dream_yara_tpu_torch.native import build as native
     from dream_yara_tpu_torch.ops.banded_verify_cuda import kernel as verify_k
     from dream_yara_tpu_torch.ops.row_gather_cuda import kernel as gather_k
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as ex:
-        paths = list(ex.map(lambda k: k.build(), (verify_k, gather_k)))
+    jobs = [verify_k.build, gather_k.build] + [
+        (lambda name=name: native.build(name)) for name in native.LIBS]
+    with ThreadPoolExecutor(max_workers=len(jobs)) as ex:
+        paths = list(ex.map(lambda job: job(), jobs))
+    missing = [name for name, p in zip(native.LIBS, paths[2:]) if p is None]
+    if missing:
+        raise RuntimeError(f"native host libraries did not build: {missing}")
     log(f"[build] {', '.join(p.name for p in paths)} in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s (native host libraries: "
+        f"{', '.join(native.LIBS)}, from dream_yara_tpu_torch/native/)")
     for k in (verify_k, gather_k):
         for line in k.build_log.splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
@@ -236,16 +236,24 @@ def phase_gather(card):
             raise AssertionError(f"gather kernel disagrees at {what}: {err}")
         k1, k2, p1, p2 = in_turns(lambda: row_gather.gather_rows(table, idx),
                                   lambda: kernel(table, idx), 10, 10)
+        lib = time_ms(lambda: torch.index_select(table, 0, idx), 10)
+        # bytes: each distinct row read once, the indices read, rows written
+        distinct = int(torch.unique(idx.long().clamp(0, nb - 1)).numel())
+        nbytes = (distinct + Q) * W * 4 + Q * idx.element_size()
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
         mb = nb * W * 4 / 2**20
         log(f"[gather] {what}: table {nb} x {W} int32 ({mb:.1f} MiB), "
             f"{Q} {idt} queries: exact (max |kernel - plain| = {err}); "
             f"kernel {k1} / {k2} ms = {Q / k1 * 1e3:.4g} rows/s, "
-            f"plain {p1} / {p2} ms = {Q / p1 * 1e3:.4g} rows/s ({card})")
+            f"plain {p1} / {p2} ms = {Q / p1 * 1e3:.4g} rows/s, index_select "
+            f"{lib} ms; bound {bound} ms ({nbytes} bytes, {distinct} distinct "
+            f"rows), kernel at {100 * bound / k1:.1f} % of it ({card})")
         if replaces is not None:
             entries.append({"name": "row_gather", "route": "cuda",
                             "source": "dream_yara_tpu_torch/csrc/row_gather.cu",
                             "replaces": replaces, "shape": what,
-                            "ms": k1, "plain_ms": p1})
+                            "ms": k1, "plain_ms": p1, "bound_ms": bound,
+                            "bound_by": "bytes", "library_ms": lib})
         del table, idx, got, want
     torch.cuda.empty_cache()
 
@@ -286,38 +294,42 @@ def phase_verify(text_np, card):
     rng = np.random.default_rng(7)
     worst = 0
     timing = None
-    for C, L, E, edges in ((131_072, 100, 3, False), (131_072, 150, 4, False),
-                           (8_192, 250, 12, False), (4_096, 100, 3, True),
-                           (4_096, 150, 4, True), (4_096, 250, 12, True),
-                           (2_048, 120, 31, True), (2_048, 60, 0, True)):
-        case = verify_case(rng, text_np, C, L, E)
-        if edges:
-            case = edge_case(text_np, *case)
-        anchors, reads, rows, lengths = (torch.from_numpy(a).to(dev) for a in case)
-        got = kernel(text, anchors, reads, rows, lengths, E)
-        want = verify.banded_verify(text, anchors, reads, rows, lengths, E)
-        torch.cuda.synchronize()
-        errs = [int((g.long() - w.long()).abs().max()) for g, w in zip(got, want)]
-        worst = max(worst, *errs)
-        ok_lanes = int((want[0] <= E).sum())
-        log(f"[verify] C={C} L={L} E={E} edges={edges}: max |kernel - plain| "
-            f"dist/begin/end = {errs} (tolerance: exact, integer outputs); "
-            f"lanes within E: {ok_lanes}/{C}")
-        if any(errs):
-            raise AssertionError(f"kernel disagrees with the plain edition at "
-                                 f"C={C} L={L} E={E}: {errs}")
-        if not edges:
-            args = (text, anchors, reads, rows, lengths, E)
-            k1, k2, p1, p2 = in_turns(lambda: verify.banded_verify(*args),
-                                      lambda: kernel(*args), 3, 20)
-            log(f"[verify] C={C} L={L} E={E}: kernel {k1} ms then {k2} ms, "
-                f"plain {p1} ms then {p2} ms ({card})")
-            if (C, L, E) == (131_072, 100, 3):
-                timing = (k1, p1)
+    with ClockSampler() as clocks:
+        for C, L, E, edges in VERIFY_SHAPES:
+            case = verify_case(rng, text_np, C, L, E)
+            if edges:
+                case = edge_case(text_np, *case)
+            anchors, reads, rows, lengths = (torch.from_numpy(a).to(dev) for a in case)
+            got = kernel(text, anchors, reads, rows, lengths, E)
+            want = verify.banded_verify(text, anchors, reads, rows, lengths, E)
+            torch.cuda.synchronize()
+            errs = [int((g.long() - w.long()).abs().max()) for g, w in zip(got, want)]
+            worst = max(worst, *errs)
+            ok_lanes = int((want[0] <= E).sum())
+            log(f"[verify] C={C} L={L} E={E} edges={edges}: max |kernel - plain| "
+                f"dist/begin/end = {errs} (tolerance: exact, integer outputs); "
+                f"lanes within E: {ok_lanes}/{C}")
+            if any(errs):
+                raise AssertionError(f"kernel disagrees with the plain edition at "
+                                     f"C={C} L={L} E={E}: {errs}")
+            if not edges:
+                args = (text, anchors, reads, rows, lengths, E)
+                k1, k2, p1, p2 = in_turns(lambda: verify.banded_verify(*args),
+                                          lambda: kernel(*args), 3, REPS)
+                b_ms, b_by, nbytes, ops = bound(case[3], E, False)
+                log(f"[verify] C={C} L={L} E={E}: kernel {k1} ms then {k2} ms, "
+                    f"plain {p1} ms then {p2} ms; bound {b_ms} ms by {b_by} "
+                    f"({nbytes} bytes, {ops} operations), kernel at "
+                    f"{100 * b_ms / k1:.1f} % of it ({card})")
+                if (C, L, E) == (131_072, 100, 3):
+                    timing = (k1, p1, b_ms, b_by)
+    log(f"[verify] card {clocks.summary()} ({card})")
+    # no PyTorch call computes a banded edit distance: library_ms is null
     return {"name": "banded_verify", "route": "cuda",
             "source": "dream_yara_tpu_torch/csrc/banded_verify.cu",
             "replaces": "dream_yara_tpu/ops/pallas_verify.py:30",
-            "max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1]}
+            "max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1],
+            "bound_ms": timing[2], "bound_by": timing[3], "library_ms": None}
 
 
 def _no_sync(fn):
@@ -394,7 +406,7 @@ def phase_chunk(label, store, fm, batch, L, error_rate, card):
     _, syncs = _no_sync(lambda: single_bin_map_step_packed(dfm["cuda"], blob_d, **kw))
     if syncs:
         raise AssertionError(f"the {label} map step synchronised: {syncs[0].message}")
-    ms = cuda_time_ms(lambda: single_bin_map_step_packed(dfm["cuda"], blob_d, **kw), 3)
+    ms = time_ms(lambda: single_bin_map_step_packed(dfm["cuda"], blob_d, **kw), 3)
     log(f"[chunk] {label} chunk ({BATCH} reads, {2 * BATCH} rows, L={L}, "
         f"E={max_err}): {ms} ms on the card, 0 host syncs in the step ({card})")
     return dfm["cuda"], blob_d, kw
@@ -435,7 +447,8 @@ def profile_step(label, fn, card) -> None:
 def simulate_reads(store, n_reads: int):
     """bench.py's read simulator: 100 bp windows with 0-3 substitutions,
     every other read reverse-complemented (seed 999)."""
-    from dream_yara_tpu_torch._shared import ReadBatch, revcomp
+    from dream_yara_tpu_torch.io.readstore import ReadBatch
+    from dream_yara_tpu_torch.utils.alphabet import revcomp
 
     rng = np.random.default_rng(999)
     text = store.text
@@ -455,8 +468,9 @@ def simulate_reads(store, n_reads: int):
 def phase_config1(store, fm, batches, card):
     import torch
 
-    from dream_yara_tpu_torch._shared import (MapperOptions, StageTimers,
-                                              golden_map_se)
+    from dream_yara_tpu_torch.golden.golden_mapper import golden_map_se
+    from dream_yara_tpu_torch.utils.options import MapperOptions
+    from dream_yara_tpu_torch.utils.timer import StageTimers
     from dream_yara_tpu_torch.pipeline.dis_mapper import (DreamIndex,
                                                           dream_map_sam,
                                                           dream_map_stream)
@@ -476,11 +490,12 @@ def phase_config1(store, fm, batches, card):
     stats: dict = {}
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    t0 = time.perf_counter()
-    sams = list(dream_map_stream(index, iter(batches), opts, timers=timers,
-                                 stats=stats))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with ClockSampler() as clocks:
+        t0 = time.perf_counter()
+        sams = list(dream_map_stream(index, iter(batches), opts, timers=timers,
+                                     stats=stats))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = launch_counts("banded_verify", "row_gather")
     peak = torch.cuda.max_memory_allocated()
     n_records = sum(sum(1 for line in s.split(b"\n") if line and line[:1] != b"@")
@@ -488,6 +503,7 @@ def phase_config1(store, fm, batches, card):
     log(f"[config-1] {n_total} reads in {wall:.3f} s = {n_total / wall:.1f} reads/s "
         f"({card}); SAM records {n_records}; mapped {stats['mapped']}, "
         f"unique {stats['unique']}")
+    log(f"[config-1] card {clocks.summary()} during the stream ({card})")
     log(f"[config-1] peak device memory {peak} bytes ({peak / 2**20:.1f} MiB) ({card})")
     log(f"[config-1] stage timers ({card}):\n{timers.report()}")
     log(f"[config-1] kernel launches in the stream: {launches}")
@@ -526,8 +542,9 @@ def build_config2():
     """tools/bench_config2.py's database: 8 random bins of 5.8 Mbp from
     default_rng(2024), an FM index each, and a 2^31-bit blocked canonical
     IBF (3 hashes, k = 19) over them."""
-    from dream_yara_tpu_torch._shared import (FMIndex, InterleavedBloomFilter,
-                                              SeqStore)
+    from dream_yara_tpu_torch.index.fmindex import FMIndex
+    from dream_yara_tpu_torch.index.ibf import InterleavedBloomFilter
+    from dream_yara_tpu_torch.io.seqstore import SeqStore
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(2024)
@@ -553,7 +570,7 @@ def make_pairs(genomes, n_pairs, rng):
     """tools/bench_config2.py's pair simulator: 150 bp FR pairs with insert
     lengths within 350 +- 80 and 0-4 substitutions per mate. Returns the
     paired batch and each pair's bin."""
-    from dream_yara_tpu_torch._shared import ReadBatch
+    from dream_yara_tpu_torch.io.readstore import ReadBatch
 
     b_of = rng.integers(0, C2_BINS, n_pairs)
     tlen = rng.integers(C2_LL - C2_LD + 10, C2_LL + C2_LD - 10, n_pairs)
@@ -584,7 +601,8 @@ def make_pairs(genomes, n_pairs, rng):
 def phase_config2(card):
     import torch
 
-    from dream_yara_tpu_torch._shared import MapperOptions, StageTimers
+    from dream_yara_tpu_torch.utils.options import MapperOptions
+    from dream_yara_tpu_torch.utils.timer import StageTimers
     from dream_yara_tpu_torch.ops.ibf_query import ibf_classify_packed
     from dream_yara_tpu_torch.ops.readpack import pack_blob_with_lengths
     from dream_yara_tpu_torch.ops.device_index import to_device
@@ -637,20 +655,22 @@ def phase_config2(card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    t0 = time.perf_counter()
-    n_records = 0
-    for sam in dream_map_stream(index, iter(batches), opts, timers=timers,
-                                stats=stats):
-        n_records += sum(1 for line in sam.split(b"\n")
-                         if line and line[:1] != b"@")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with ClockSampler() as clocks:
+        t0 = time.perf_counter()
+        n_records = 0
+        for sam in dream_map_stream(index, iter(batches), opts, timers=timers,
+                                    stats=stats):
+            n_records += sum(1 for line in sam.split(b"\n")
+                             if line and line[:1] != b"@")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = launch_counts("banded_verify", "row_gather")
     peak = torch.cuda.max_memory_allocated()
     log(f"[config-2] {n_total} reads ({n_total // 2} pairs) in {wall:.3f} s = "
         f"{n_total / wall:.1f} reads/s ({card}); SAM records {n_records}; "
         f"mapped {stats['mapped']} ({100 * stats['mapped'] / n_total:.3f} %), "
         f"unique {stats['unique']}, proper pairs {stats['proper_pairs']}")
+    log(f"[config-2] card {clocks.summary()} during the stream ({card})")
     log(f"[config-2] peak device memory {peak} bytes ({peak / 2**20:.1f} MiB) ({card})")
     log(f"[config-2] stage timers ({card}):\n{timers.report()}")
     log(f"[config-2] kernel launches in the stream: {launches}")
@@ -705,9 +725,11 @@ def build_rep_rich():
     bench maps with), the reverse fused rows, and 100 bp reads with up to
     2 substitutions from default_rng(7), every other one from a repeat copy.
     Returns (store, fm_full, fm8, rfused, batches, truth)."""
-    from dream_yara_tpu_torch._shared import (FMIndex, ReadBatch, SeqStore,
-                                              build_reverse_fused,
-                                              repeat_rich_genome, sample_reads)
+    from dream_yara_tpu_torch.index.bifm import build_reverse_fused
+    from dream_yara_tpu_torch.index.fmindex import FMIndex
+    from dream_yara_tpu_torch.io.readstore import ReadBatch
+    from dream_yara_tpu_torch.io.seqstore import SeqStore
+    from dream_yara_tpu_torch.utils.simulate import repeat_rich_genome, sample_reads
 
     t0 = time.perf_counter()
     g, ann = repeat_rich_genome(np.random.default_rng(42), RR_GENOME_LEN,
@@ -759,7 +781,8 @@ def phase_rep_rich(card):
     """The repeat-rich path on the card; returns the stream's launches."""
     import torch
 
-    from dream_yara_tpu_torch._shared import MapperOptions, StageTimers
+    from dream_yara_tpu_torch.utils.options import MapperOptions
+    from dream_yara_tpu_torch.utils.timer import StageTimers
     from dream_yara_tpu_torch.ops.device_index import DeviceFM, to_device
     from dream_yara_tpu_torch.ops.locate import locate_sampled_fused
     from dream_yara_tpu_torch.ops.readpack import pack_blob_with_lengths
@@ -794,7 +817,7 @@ def phase_rep_rich(card):
     if not np.array_equal(got, fm_full.sa[rows.cpu().numpy()]):
         raise AssertionError("the sampled locate differs from the full SA")
     log(f"[rep-rich] locate: {len(got)} SA rows (first, last, 2^20 random) "
-        f"on the rate-8 SA equal the full SA; {cuda_time_ms(locate, 5)} ms a "
+        f"on the rate-8 SA equal the full SA; {time_ms(locate, 5)} ms a "
         f"call ({card})")
 
     # 2. one group of overflowing rows, four ways, card against CPU
@@ -872,8 +895,8 @@ def phase_rep_rich(card):
     dev_full = DeviceFM.from_host(fm_full, store.text, dev)
     step_full = lambda: single_bin_map_step_packed(dev_full, blob, **step_kw)
     log(f"[rep-rich] map-step chunk ({nb} reads, {chunk_rows} rows): "
-        f"{cuda_time_ms(step, 3)} ms at sample rate {fm8.sample_rate}, "
-        f"{cuda_time_ms(step_full, 3)} ms on the full SA ({card})")
+        f"{time_ms(step, 3)} ms at sample rate {fm8.sample_rate}, "
+        f"{time_ms(step_full, 3)} ms on the full SA ({card})")
     del dev_full
     profile_step(f"rep-rich map-step chunk ({nb} reads, sample rate 8)", step, card)
     del group_in, blob
@@ -892,11 +915,12 @@ def phase_rep_rich(card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    t0 = time.perf_counter()
-    sams = list(dream_map_stream(index, iter(batches[1:]), opts, timers=timers,
-                                 stats=stats))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with ClockSampler() as clocks:
+        t0 = time.perf_counter()
+        sams = list(dream_map_stream(index, iter(batches[1:]), opts, timers=timers,
+                                     stats=stats))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = launch_counts("banded_verify", "row_gather")
     peak = torch.cuda.max_memory_allocated()
     groups = {k: v for k, v in timers.counts.items()
@@ -908,6 +932,7 @@ def phase_rep_rich(card):
         f"({100 * stats['mapped'] / n_total:.3f} %), unique {stats['unique']}; "
         f"planted site among the reported matches for "
         f"{100 * planted_share(sams, truth):.3f} % of reads")
+    log(f"[rep-rich] card {clocks.summary()} during the stream ({card})")
     log(f"[rep-rich] peak device memory {peak} bytes ({peak / 2**20:.1f} MiB) ({card})")
     log(f"[rep-rich] stage timers ({card}):\n{timers.report()}")
     log(f"[rep-rich] repetitive groups by stratum and backend: {groups}; "
@@ -964,34 +989,35 @@ def phase_stacked_verify(card):
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(5)
-    worst, timing = 0, None
-    cases = (("config-5", [C5_BIN_LEN + 1] * C5_BINS, C5_VERIFY_LANES, 100, 3, False),
-             ("edges, unequal bins", [2000 + 128 * b + 7 * (b % 3) for b in range(5)],
-              4_096, 100, 3, True),
-             ("edges, L=150 E=4", [3000, 1000, 2500], 4_096, 150, 4, True))
-    for what, lens, C, L, E, edges in cases:
-        host = stacked_case(rng, lens, C, L, E, edges)
-        text, bin_n, lane_bin, anchors, reads, rows, lengths = (
-            torch.from_numpy(a).to(dev) for a in host)
-        args = (text, anchors, reads, rows, lengths, E)
-        got = kernel(*args, lane_bin=lane_bin, bin_n=bin_n)
-        want = verify.banded_verify(*args, lane_bin=lane_bin, bin_n=bin_n)
-        torch.cuda.synchronize()
-        errs = [int((g.long() - w.long()).abs().max()) for g, w in zip(got, want)]
-        worst = max(worst, *errs)
-        log(f"[stacked] {what}: B={len(lens)} C={C} L={L} E={E}: max |kernel - "
-            f"plain| dist/begin/end = {errs} (tolerance: exact); lanes within E: "
-            f"{int((want[0] <= E).sum())}/{C}")
-        if any(errs):
-            raise AssertionError(f"stacked kernel disagrees at {what}: {errs}")
-        if not edges:
-            kw = dict(lane_bin=lane_bin, bin_n=bin_n)
-            k1, k2, p1, p2 = in_turns(lambda: verify.banded_verify(*args, **kw),
-                                      lambda: kernel(*args, **kw), 3, 20)
-            log(f"[stacked] {what}: kernel {k1} ms then {k2} ms, plain {p1} ms "
-                f"then {p2} ms ({card})")
-            timing = (k1, p1)
-        del text, reads
+    worst, timing, shape = 0, None, None
+    with ClockSampler() as clocks:
+        for what, lens, C, L, E, edges in STACKED_SHAPES:
+            host = stacked_case(rng, lens, C, L, E, edges)
+            text, bin_n, lane_bin, anchors, reads, rows, lengths = (
+                torch.from_numpy(a).to(dev) for a in host)
+            args = (text, anchors, reads, rows, lengths, E)
+            got = kernel(*args, lane_bin=lane_bin, bin_n=bin_n)
+            want = verify.banded_verify(*args, lane_bin=lane_bin, bin_n=bin_n)
+            torch.cuda.synchronize()
+            errs = [int((g.long() - w.long()).abs().max()) for g, w in zip(got, want)]
+            worst = max(worst, *errs)
+            log(f"[stacked] {what}: B={len(lens)} C={C} L={L} E={E}: max |kernel - "
+                f"plain| dist/begin/end = {errs} (tolerance: exact); lanes within E: "
+                f"{int((want[0] <= E).sum())}/{C}")
+            if any(errs):
+                raise AssertionError(f"stacked kernel disagrees at {what}: {errs}")
+            if not edges:
+                kw = dict(lane_bin=lane_bin, bin_n=bin_n)
+                k1, k2, p1, p2 = in_turns(lambda: verify.banded_verify(*args, **kw),
+                                          lambda: kernel(*args, **kw), 3, REPS)
+                b_ms, b_by, nbytes, ops = bound(host[6], E, True)
+                log(f"[stacked] {what}: kernel {k1} ms then {k2} ms, plain {p1} ms "
+                    f"then {p2} ms; bound {b_ms} ms by {b_by} ({nbytes} bytes, {ops} "
+                    f"operations), kernel at {100 * b_ms / k1:.1f} % of it ({card})")
+                timing = (k1, p1, b_ms, b_by)
+                shape = f"{what}: B={len(lens)}, C={C}, L={L}, E={E}"
+            del text, reads
+    log(f"[stacked] card {clocks.summary()} ({card})")
     # one bin: the stacked entry equals the single-bin entry
     host = stacked_case(rng, [50_000], 8_192, 100, 3, True)
     text, bin_n, lane_bin, anchors, reads, rows, lengths = (
@@ -1010,16 +1036,18 @@ def phase_stacked_verify(card):
             "source": "dream_yara_tpu_torch/csrc/banded_verify.cu",
             "replaces": "dream_yara_tpu/ops/pallas_verify.py:30",
             "launcher": "dream_yara_tpu/ops/pallas_verify.py:93",
-            "shape": f"config-5: B={C5_BINS}, C={C5_VERIFY_LANES}, L=100, E=3",
-            "max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1]}
+            "shape": shape,
+            "max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1],
+            "bound_ms": timing[2], "bound_by": timing[3], "library_ms": None}
 
 
 def build_config5():
     """tools/bench_config5.py's database: 256 random bins of 400,000 bp from
     default_rng(52), an FM index each, and a blocked canonical IBF of
     12 x 400,000 x 256 bits (3 hashes, k = 19)."""
-    from dream_yara_tpu_torch._shared import (FMIndex, InterleavedBloomFilter,
-                                              SeqStore)
+    from dream_yara_tpu_torch.index.fmindex import FMIndex
+    from dream_yara_tpu_torch.index.ibf import InterleavedBloomFilter
+    from dream_yara_tpu_torch.io.seqstore import SeqStore
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(52)
@@ -1047,7 +1075,8 @@ def make_batch5(genomes, n_reads, rng):
     """tools/bench_config5.py's reads: Zipf-weighted source bins (rank r
     weighs 1 / (r + 1)), 100 bp windows with 0-3 substitutions, every other
     read reverse-complemented."""
-    from dream_yara_tpu_torch._shared import ReadBatch, revcomp
+    from dream_yara_tpu_torch.io.readstore import ReadBatch
+    from dream_yara_tpu_torch.utils.alphabet import revcomp
 
     B = len(genomes)
     w = 1.0 / np.arange(1, B + 1)
@@ -1117,7 +1146,7 @@ def phase_flat_chunk(mapper, cpu_mapper, batch, card):
     run()
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
-    ms = cuda_time_ms(run, 3)
+    ms = time_ms(run, 3)
     log(f"[flat] full step ({n} reads, pool {r_cap} slots, {2 * r_cap} rows): "
         f"{ms} ms on the card, 0 host syncs; peak memory above the resident set "
         f"{peak} bytes ({peak / 2**20:.1f} MiB) ({card})")
@@ -1130,7 +1159,8 @@ def phase_config5(card):
     multi-bin step (mesh_dream_stream on one card). Returns its launches."""
     import torch
 
-    from dream_yara_tpu_torch._shared import MapperOptions, StageTimers
+    from dream_yara_tpu_torch.utils.options import MapperOptions
+    from dream_yara_tpu_torch.utils.timer import StageTimers
     from dream_yara_tpu_torch.parallel.dream_mesh import (MeshDreamMapper,
                                                           mesh_dream_sam,
                                                           mesh_dream_stream)
@@ -1175,11 +1205,12 @@ def phase_config5(card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    t0 = time.perf_counter()
-    sams = list(mesh_dream_stream(mapper, iter(batches), timers=timers,
-                                  stats=stats))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with ClockSampler() as clocks:
+        t0 = time.perf_counter()
+        sams = list(mesh_dream_stream(mapper, iter(batches), timers=timers,
+                                      stats=stats))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     diag = dict(mapper.fallback_diag)
@@ -1188,6 +1219,7 @@ def phase_config5(card):
         f"({100 * stats['mapped'] / n_total:.3f} %), unique {stats['unique']}; "
         f"routed pairs per read {diag['routed'] / (n_total + C5_BATCH):.5f}; "
         f"fallback_diag {diag}")
+    log(f"[config-5] card {clocks.summary()} during the flat stream ({card})")
     log(f"[config-5] peak device memory {peak} bytes ({peak / 2**20:.1f} MiB) ({card})")
     log(f"[config-5] stage timers ({card}):\n{timers.report()}")
     log(f"[config-5] kernel launches in the flat stream: {launches}")
@@ -1265,23 +1297,40 @@ def phase_config2_mesh(index, opts, batch, card):
     torch.cuda.empty_cache()
 
 
+# The mapper CLI as `python -m dream_yara_tpu_torch.cli.mapper_cli ARGS`
+# runs it, followed by the process's kernel launches on stderr.
+CLI_RUNNER = """
+import json, runpy, sys
+sys.argv = ["dream-yara-tpu-torch-mapper", *sys.argv[1:]]
+try:
+    runpy.run_module("dream_yara_tpu_torch.cli.mapper_cli", run_name="__main__")
+finally:
+    from dream_yara_tpu_torch.ops import banded_verify_cuda, row_gather_cuda
+    v = banded_verify_cuda.kernel
+    print("LAUNCHES " + json.dumps({
+        "banded_verify": v.launches - v.stacked_launches,
+        "banded_verify_stacked": v.stacked_launches,
+        "row_gather": row_gather_cuda.kernel.launches}), file=sys.stderr)
+"""
+
+
 def phase_cli(card):
-    """The port's mapper CLI as a user runs it: a small database written by
-    the shared indexer and build-filter tools, then SE and PE FASTQ mapped
-    by `python -m dream_yara_tpu_torch.cli.mapper_cli` on the card
-    (DY_PLATFORM unset), default path and --mesh; every output file equals
-    the in-process SAM."""
+    """The port's CLI tools as a user runs them: a small database written
+    by the port's indexer and build-filter (subprocesses), then SE and PE
+    FASTQ mapped by the port's mapper CLI on the card (DY_PLATFORM unset),
+    default path and --mesh; every output file equals the in-process SAM.
+    Returns the kernel launches of the four mapper runs."""
     import os
     import tempfile
     from pathlib import Path
 
     import torch
 
-    from dream_yara_tpu_torch._shared import (FastqBatchReader, MapperOptions,
-                                              run_build_filter, run_indexer,
-                                              write_fasta)
+    from dream_yara_tpu_torch.io.fasta import write_fasta
+    from dream_yara_tpu_torch.io.fastq import FastqBatchReader
     from dream_yara_tpu_torch.pipeline.dis_mapper import (DreamIndex,
                                                           dream_map_stream)
+    from dream_yara_tpu_torch.utils.options import MapperOptions
 
     rng = np.random.default_rng(3)
     code = np.frombuffer(b"ACGTN", np.uint8)
@@ -1291,12 +1340,17 @@ def phase_cli(card):
                    for _ in range(CLI_BINS)]
         for b, g in enumerate(genomes):
             write_fasta(tmp / f"bin{b}.fa", [f"g{b}"], [g])
+        env = {k: v for k, v in os.environ.items() if k != "DY_PLATFORM"}
+        env["PYTHONPATH"] = str(Path(__file__).resolve().parent)
         t0 = time.perf_counter()
-        run_indexer(["--bins-dir", str(tmp), "-o", str(tmp / "db")])
-        run_build_filter(["--bins-dir", str(tmp), "-o", str(tmp / "db"),
-                           "-bs", "16m", "-k", "19"])
-        log(f"[cli] indexer and build-filter: {CLI_BINS} bins x {CLI_BIN_LEN} bp "
-            f"in {time.perf_counter() - t0:.1f} s")
+        for tool, extra in (("indexer", []), ("build_filter", ["-bs", "16m", "-k", "19"])):
+            r = subprocess.run([sys.executable, "-m", f"dream_yara_tpu_torch.cli.{tool}",
+                                "--bins-dir", str(tmp), "-o", str(tmp / "db"), *extra],
+                               env=env, capture_output=True, text=True, timeout=600)
+            if r.returncode != 0:
+                raise AssertionError(f"the port's {tool} failed:\n{r.stderr}")
+        log(f"[cli] the port's indexer and build-filter (subprocesses): {CLI_BINS} "
+            f"bins x {CLI_BIN_LEN} bp in {time.perf_counter() - t0:.1f} s")
 
         def fastq(path, rows, tag):
             with open(path, "wb") as fh:
@@ -1314,20 +1368,21 @@ def phase_cli(card):
         fastq(tmp / "r2.fq", [np.where(w[::-1] < 4, 3 - w[::-1], w[::-1])
                               for w in (window(b, p + 200)
                                         for b, p in zip(b_of, p_of))], b"p")
-        env = {k: v for k, v in os.environ.items() if k != "DY_PLATFORM"}
-        env["PYTHONPATH"] = str(Path(__file__).resolve().parent)
         index = DreamIndex.load(tmp / "db", device=torch.device("cuda"))
+        launches: dict = {}
         for mode, reads in (("SE", ["se.fq"]), ("PE", ["r1.fq", "r2.fq"])):
             for mesh in ([], ["--mesh"]):
                 args = ["db", *reads, "-o", "out.sam", "-e", "0.03", "-ll", "300",
                         "-ld", "50", *mesh]
                 t0 = time.perf_counter()
-                r = subprocess.run([sys.executable, "-m",
-                                    "dream_yara_tpu_torch.cli.mapper_cli", *args],
+                r = subprocess.run([sys.executable, "-c", CLI_RUNNER, *args],
                                    cwd=tmp, env=env, capture_output=True,
                                    text=True, timeout=600)
                 if r.returncode != 0:
                     raise AssertionError(f"CLI {mode} {mesh} failed:\n{r.stderr}")
+                errs = r.stderr.strip().splitlines()
+                for k, n in json.loads(errs[-1].split(" ", 1)[1]).items():
+                    launches[k] = launches.get(k, 0) + n
                 got = (tmp / "out.sam").read_bytes()
                 opts = MapperOptions(error_rate=0.03, library_length=300,
                                      library_deviation=50)
@@ -1341,7 +1396,9 @@ def phase_cli(card):
                 log(f"[cli] {mode} {' '.join(mesh) or 'default'}: {len(got)} bytes, "
                     f"identical to the in-process SAM; subprocess "
                     f"{time.perf_counter() - t0:.1f} s; "
-                    f"{r.stderr.strip().splitlines()[0]} ({card})")
+                    f"{errs[0]} ({card})")
+        log(f"[cli] kernel launches of the four mapper runs: {launches}")
+    return launches
 
 
 def main() -> int:
@@ -1351,11 +1408,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device: this run needs an NVIDIA GPU",
               file=sys.stderr)
         return 2
-    from dream_yara_tpu_torch._shared import FMIndex, SeqStore
+    from dream_yara_tpu_torch.index.fmindex import FMIndex
+    from dream_yara_tpu_torch.io.seqstore import SeqStore
 
     t_start = time.perf_counter()
     card = card_line()
     log(card)
+    log(f"[card] {host_line()}")
     log(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
 
@@ -1398,7 +1457,7 @@ def main() -> int:
     by_path["config-2"] = phase_config2(card)
     by_path["rep-rich"] = phase_rep_rich(card)
     by_path["config-5"], flat_ms = phase_config5(card)
-    phase_cli(card)
+    by_path["cli"] = phase_cli(card)
     # `launches` is each entry's own path's count: the stacked verify the
     # config-5 flat stream's, the repeat-rich gather shapes that path's,
     # the others config-2's

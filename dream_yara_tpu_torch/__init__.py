@@ -2,9 +2,10 @@
 
 The port sits beside the JAX package and keeps its module names, so each
 module here has a counterpart in `dream_yara_tpu/` that its tests hold it
-against. It imports `torch` and never `jax`; the reference's JAX-free host
-code (index, io, utils, native, golden and the host pipeline stages) is
-shared through `_shared`.
+against. It imports `torch` and never `jax`, and nothing of `dream_yara_tpu`: the
+host code it needs (index, io, utils, native, golden, the host pipeline
+stages and the indexer and filter CLIs) is its own copy of the
+reference's.
 
 Layer map of the ported slices (config-1 single-end, config-2 DREAM
 paired-end with the IBF prefilter, the repeat-rich path: sampled SA and the
@@ -28,10 +29,13 @@ repetitive re-seed strata):
                       the repetitive step, chunking, the overflow and
                       repetitive passes, mate rescue and pairing, routing
                       and the DREAM stream
+  index/, io/, utils/, native/, golden/, pipeline/{matches,mapq,cigar,pairs,
+  writer}, cli/{indexer,build_filter,update_filter} — host code: the FM
+                      index and filters, FASTA/FASTQ/SAM/BAM, options,
+                      the C++ helpers (g++ at first use), the golden model
+                      and the host tools
 
 Every entry point takes an explicit `device`; there is no default.
 """
-
-from . import _shared  # noqa: F401 — installs the import boundary first
 
 __version__ = "0.1.0"

@@ -1,3 +1,3 @@
-"""Command-line tools of the port: the mapper (`dream-yara-tpu-torch-mapper`).
-The indexer and the filter tools are host-only and shared with the
-reference (`dream-yara-tpu-indexer`, `-build-filter`, `-update-filter`)."""
+"""Command-line tools of the port: `dream-yara-tpu-torch-indexer`,
+`-build-filter`, `-update-filter` (host-only copies of the reference's) and
+`-mapper` (maps on the device DY_PLATFORM names)."""

@@ -61,9 +61,12 @@ def main(argv=None):
         sys.exit("error: multi-host mapping (--coordinator, --num-processes, "
                  "--process-id) is not in the port yet: ROADMAP item 16")
 
-    from .._shared import (FastqBatchReader, MapperOptions, StageTimers,
-                           drive_sharded_stream, sam_header)
+    from ..io.fastq import FastqBatchReader
+    from ..io.shards import drive_sharded_stream
     from ..pipeline.dis_mapper import DreamIndex, dream_map_stream
+    from ..pipeline.writer import sam_header
+    from ..utils.options import MapperOptions
+    from ..utils.timer import StageTimers
     from .common import cli_device, open_output
 
     device = cli_device()

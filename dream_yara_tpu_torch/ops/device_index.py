@@ -13,7 +13,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .._shared import BLOCK, BWT_PAD, FMIndex
+from ..index.fmindex import BLOCK, BWT_PAD, FMIndex
 from .rank import build_fused_rank_rows
 
 

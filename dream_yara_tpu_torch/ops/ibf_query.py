@@ -25,7 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .._shared import BLOCK_WORDS, HASH_SEEDS, MIX_MULT
+from ..index.hashing import BLOCK_WORDS, HASH_SEEDS, MIX_MULT
 from .readpack import int32_bits, unpack_blob, unpack_fwd, unpack_reads
 from .row_gather_cuda import gather_rows
 

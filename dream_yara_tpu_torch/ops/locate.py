@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from .._shared import BLOCK
+from ..index.fmindex import BLOCK
 from .rank import rank, rank_fused_rows
 from .row_gather_cuda import gather_rows
 

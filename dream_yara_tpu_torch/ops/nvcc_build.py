@@ -54,9 +54,13 @@ class NvccKernel:
         return BUILD_DIR / f"libdy_{self.source.stem}-{digest}.so"
 
     def build(self) -> Path:
-        """Compile the library unless a build of the same source exists."""
+        """Compile the library unless a build of the same source exists.
+        `build_log` holds nvcc's output (the ptxas lines) either way: it is
+        kept beside the library."""
         out = self.library_path()
+        log = out.with_suffix(".log")
         if out.exists():
+            self.build_log = log.read_text() if log.exists() else ""
             return out
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp.so")
@@ -66,6 +70,7 @@ class NvccKernel:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {self.source.name} "
                                f"({proc.returncode}):\n{self.build_log}")
+        log.write_text(self.build_log)
         os.replace(tmp, out)
         return out
 

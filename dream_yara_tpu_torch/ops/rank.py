@@ -17,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._shared import BLOCK
+from ..index.fmindex import BLOCK
 from .row_gather_cuda import gather_rows
 
 _LOG2_BLOCK = 7

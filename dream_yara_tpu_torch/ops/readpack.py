@@ -22,18 +22,16 @@ def pack_reads_fwd(seqs_fwd: np.ndarray, half: int, L: int,
                    nmask_out: np.ndarray | None = None):
     """Host-side: 2-bit-pack forward read rows + N bitmask (uint32 outputs).
 
-    Uses the shared native packer (dream_yara_tpu/native/readpack.cpp) and
+    Uses the port's native packer (native/readpack.cpp) and
     falls back to the numpy oracle below when it cannot be built, exactly as
     the reference does; packed_out/nmask_out let callers pack straight into
     a blob slice."""
     k = seqs_fwd.shape[0]
     Wp = (L + 15) // 16
     Wn = (L + 31) // 32
-    try:
-        from dream_yara_tpu.native import readpack as _native
-    except ImportError:
-        _native = None
-    if _native is not None and _native.available():
+    from ..native import readpack as _native
+
+    if _native.available():
         if packed_out is None:
             packed_out = np.empty((half, Wp), dtype=np.uint32)
         if nmask_out is None:

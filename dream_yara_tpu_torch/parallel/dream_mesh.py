@@ -22,7 +22,10 @@ from queue import Queue
 import numpy as np
 import torch
 
-from .._shared import Matches, MapperOptions, ReadBatch, StageTimers
+from ..io.readstore import ReadBatch
+from ..pipeline.matches import Matches
+from ..utils.options import MapperOptions
+from ..utils.timer import StageTimers
 from ..ops.device_index import DeviceFMSet, to_device
 from ..pipeline.dis_mapper import DreamIndex, _finish_batch, _sub_batch
 from ..pipeline.map_step import max_seed_len_static, uniform_len_ok

@@ -21,12 +21,17 @@ from queue import Queue
 import numpy as np
 import torch
 
-from .._shared import (DirectKmerFilter, FMIndex, GlobalContigs,
-                       InterleavedBloomFilter, Matches, MapperOptions, Ranked,
-                       ReadBatch, SeqStore, StageTimers, build_matches,
-                       compute_cigars, dedup_matches, rank_matches,
-                       rescue_candidates, sam_header, select_pairs,
-                       write_pe_records, write_se_records)
+from ..index.fmindex import FMIndex
+from ..index.ibf import InterleavedBloomFilter
+from ..index.kdx import DirectKmerFilter
+from ..io.readstore import ReadBatch
+from ..io.seqstore import SeqStore
+from ..utils.options import MapperOptions
+from ..utils.timer import StageTimers
+from .cigar import compute_cigars
+from .matches import Matches, Ranked, build_matches, dedup_matches, rank_matches
+from .pairs import rescue_candidates, select_pairs
+from .writer import GlobalContigs, sam_header, write_pe_records, write_se_records
 from ..ops.device_index import to_device
 from ..ops.ibf_query import host_block_rows, ibf_classify_packed
 from ..ops.readpack import pack_blob_with_lengths

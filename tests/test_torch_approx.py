@@ -16,7 +16,10 @@ from dream_yara_tpu.io.seqstore import SeqStore
 from dream_yara_tpu.ops import approx_search as jas
 from dream_yara_tpu.ops import bidir_search as jbd
 from dream_yara_tpu.ops.device_index import DeviceFM as JDeviceFM
-from dream_yara_tpu_torch._shared import build_reverse_fused
+from dream_yara_tpu.index.bifm import build_reverse_fused as j_build_reverse_fused
+from dream_yara_tpu_torch.index.bifm import build_reverse_fused
+from dream_yara_tpu_torch.index.fmindex import FMIndex as TFMIndex
+from dream_yara_tpu_torch.io.seqstore import SeqStore as TSeqStore
 from dream_yara_tpu_torch.ops import approx_search as tas
 from dream_yara_tpu_torch.ops import bidir_search as tbd
 from dream_yara_tpu_torch.ops.device_index import DeviceFM
@@ -33,7 +36,9 @@ def _eq(t, j, msg=""):
 @pytest.fixture(scope="module")
 def bi_index():
     """Two contigs with a segment repeated 12 times (large intervals) and a
-    run of N; the forward index and the reverse rows."""
+    run of N; the forward index and the reverse rows, built by each package
+    (the reference's for JAX and the host BiFMIndex, the port's for the
+    port: equal field for field)."""
     rng = np.random.default_rng(23)
     seg = random_text(rng, 200)
     g = np.concatenate([random_text(rng, 1500), np.tile(seg, 12),
@@ -41,8 +46,16 @@ def bi_index():
     g[3900:3910] = 4
     store = SeqStore.from_seqs(["x", "y"], [g[:3000], g[3000:]])
     fm = FMIndex.build(store.text, prefix_q=5)
-    rfused, rcounts = build_reverse_fused(store.text)
-    return store, fm, rfused, rcounts
+    rfused, rcounts = j_build_reverse_fused(store.text)
+    tstore = TSeqStore.from_seqs(["x", "y"], [g[:3000], g[3000:]])
+    tfm = TFMIndex.build(tstore.text, prefix_q=5)
+    trfused, trcounts = build_reverse_fused(tstore.text)
+    np.testing.assert_array_equal(tstore.text, store.text)
+    for k, v in vars(fm).items():
+        np.testing.assert_array_equal(getattr(tfm, k), v, err_msg=k)
+    np.testing.assert_array_equal(trfused, rfused)
+    np.testing.assert_array_equal(trcounts, rcounts)
+    return store, fm, rfused, rcounts, tfm, trfused
 
 
 def _reads(rng, text, n, L, n_sub=2):
@@ -74,12 +87,12 @@ def _seeds(rng, n_rows, L, m, short=True):
 @pytest.mark.parametrize("budget,indels,m", [(1, False, 20), (1, True, 20),
                                              (2, False, 12), (2, True, 9)])
 def test_seed_search_edits_equals_jax(bi_index, budget, indels, m):
-    store, fm, _, _ = bi_index
+    store, fm, _, _, tfm, _ = bi_index
     rng = np.random.default_rng(100 * budget + indels)
     L = 48
     reads = _reads(rng, store.text, 24, L)
     rows, starts, slens = _seeds(rng, 24, L, m)
-    t = DeviceFM.from_host(fm, store.text, CPU)
+    t = DeviceFM.from_host(tfm, store.text, CPU)
     j = JDeviceFM.from_host(fm, store.text)
     got = tas.seed_search_edits(t.fused, t.counts, t.n, torch.from_numpy(reads),
                                 torch.from_numpy(rows), torch.from_numpy(starts),
@@ -102,8 +115,8 @@ def test_extend_left_right_equal_jax_and_host(bi_index):
     """Seven-char text windows grown from their middle char, alternating
     extend_right and extend_left (live intervals), plus random-char lanes;
     every state equal to JAX's, and the first lanes to the host BiFMIndex."""
-    store, fm, rfused, rcounts = bi_index
-    t = DeviceFM.from_host(fm, store.text, CPU, rfused=rfused)
+    store, fm, rfused, rcounts, tfm, trfused = bi_index
+    t = DeviceFM.from_host(tfm, store.text, CPU, rfused=trfused)
     j = JDeviceFM.from_host(fm, store.text, rfused=rfused)
     host = BiFMIndex(fm=fm, rfused=rfused, rcounts=rcounts)
     rng = np.random.default_rng(5)
@@ -138,12 +151,12 @@ def test_extend_left_right_equal_jax_and_host(bi_index):
 
 @pytest.mark.parametrize("budget,m", [(1, 20), (2, 12)])
 def test_bidir_seed_search_equals_jax(bi_index, budget, m):
-    store, fm, rfused, _ = bi_index
+    store, fm, rfused, _, tfm, trfused = bi_index
     rng = np.random.default_rng(7 + budget)
     L = 48
     reads = _reads(rng, store.text, 24, L)
     rows, starts, slens = _seeds(rng, 24, L, m)
-    t = DeviceFM.from_host(fm, store.text, CPU, rfused=rfused)
+    t = DeviceFM.from_host(tfm, store.text, CPU, rfused=trfused)
     j = JDeviceFM.from_host(fm, store.text, rfused=rfused)
     got = tbd.bidir_seed_search(t.fused, t.counts, t.rfused, t.counts, t.n,
                                 torch.from_numpy(reads), torch.from_numpy(rows),

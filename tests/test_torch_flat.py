@@ -18,6 +18,8 @@ from dream_yara_tpu.ops.readpack import unpack_reads as junpack_reads
 from dream_yara_tpu.ops.verify import banded_verify as jbanded_verify
 from dream_yara_tpu.pipeline import flat_step as jflat
 from dream_yara_tpu.utils.alphabet import revcomp
+from dream_yara_tpu_torch.index.fmindex import FMIndex as TFMIndex
+from dream_yara_tpu_torch.io.seqstore import SeqStore as TSeqStore
 from dream_yara_tpu_torch.ops import banded_verify_cuda, row_gather_cuda
 from dream_yara_tpu_torch.ops.device_index import DeviceFMSet
 from dream_yara_tpu_torch.ops.readpack import pack_blob_with_lengths
@@ -35,15 +37,17 @@ def _eq(t, j, msg=""):
     np.testing.assert_array_equal(np.asarray(t), np.asarray(j), err_msg=msg)
 
 
-def _bins(seed, rate=1, qs=(7, 7, 7), lens=(3000, 4200, 3500)):
+def _bins(seed, rate=1, qs=(7, 7, 7), lens=(3000, 4200, 3500), port=False):
     """Bins of unequal length (the first with a tandem repeat, so seeds
-    overflow), each FM index built at its own prefix q."""
+    overflow), each FM index built at its own prefix q, by the reference's
+    host classes or (port=True) by the port's."""
+    SeqStore_, FMIndex_ = (TSeqStore, TFMIndex) if port else (SeqStore, FMIndex)
     rng = np.random.default_rng(seed)
     unit = random_text(rng, 40)
     genomes = [np.concatenate([np.tile(unit, 20), random_text(rng, lens[0] - 800)])]
     genomes += [random_text(rng, n) for n in lens[1:]]
-    stores = [SeqStore.from_seqs([f"g{b}"], [g]) for b, g in enumerate(genomes)]
-    fms = [FMIndex.build(st.text, sample_rate=rate, prefix_q=q)
+    stores = [SeqStore_.from_seqs([f"g{b}"], [g]) for b, g in enumerate(genomes)]
+    fms = [FMIndex_.build(st.text, sample_rate=rate, prefix_q=q)
            for st, q in zip(stores, qs)]
     return rng, genomes, stores, fms
 
@@ -56,7 +60,7 @@ def test_device_fmset_equals_jax(rate, qs, lean):
     indexes, padding to 4 bins included; bin(b) views the stack; a bin
     built at another q is rebuilt at the common q (on both packages'
     own copies)."""
-    _, _, stores, fms = _bins(1, rate, qs)
+    _, _, stores, fms = _bins(1, rate, qs, port=True)
     _, _, _, fms_j = _bins(1, rate, qs)
     texts = [st.text for st in stores]
     got = DeviceFMSet.build_np(fms, texts, pad_bins_to=4, lean=lean)
@@ -199,6 +203,8 @@ def test_slot_pool_of_no_reads():
 def flat_db():
     rng, genomes, stores, fms = _bins(3)
     rate4 = [fm.subsample_sa(4) for fm in fms]
+    _, _, _, tfms = _bins(3, port=True)
+    trate4 = [fm.subsample_sa(4) for fm in tfms]
     names, reads = [], []
     for i in range(36):
         b = i % 3
@@ -209,7 +215,7 @@ def flat_db():
         reads.append(revcomp(r) if i % 3 == 1 else r)
     reads.append(random_text(rng, 100))
     reads.append(genomes[1][50:140].copy())               # a shorter read
-    return rng, stores, fms, rate4, reads
+    return rng, stores, (fms, tfms), (rate4, trate4), reads
 
 
 @pytest.mark.parametrize("case", ["full", "full_q0", "sampled", "sampled_spill",
@@ -219,7 +225,7 @@ def test_flat_map_step_equals_jax(flat_db, case):
     equal the JAX step's on the same slots: full and rate-4 SA, a loc_cap
     small enough to spill, the q-mer table off, lengths uniform or not."""
     rng, stores, fms, rate4, reads = flat_db
-    fm_list = rate4 if case.startswith("sampled") else fms
+    fm_list, tfm_list = rate4 if case.startswith("sampled") else fms
     texts = [st.text for st in stores]
     reads = reads if case == "ragged" else reads[:-1]
     n = len(reads)
@@ -244,7 +250,7 @@ def test_flat_map_step_equals_jax(flat_db, case):
     want = jflat.flat_map_step(JDeviceFMSet.from_host(fm_list, texts),
                                jnp.asarray(reads2), jnp.asarray(lens), *slots[:3],
                                **kw)
-    tset = DeviceFMSet.from_host(fm_list, texts, CPU)
+    tset = DeviceFMSet.from_host(tfm_list, texts, CPU)
     got = tflat.flat_map_step(tset, t_(reads2), t_(lens),
                               *(t_(np.array(s)) for s in slots[:3]), **kw)
     for f in ("seed_lo", "seed_hi", "overflow", "m_start", "overflow_total",

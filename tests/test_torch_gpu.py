@@ -75,9 +75,10 @@ def test_gather_kernel_equals_plain_edition(cuda_device, nb, W, Q, idx_dtype):
 def rich_bin():
     """A 200 kbp repeat-rich bin, its rate-8 index, reverse rows and 64
     reads (half from repeat copies) as a (fwd | revcomp) row matrix."""
-    from dream_yara_tpu_torch._shared import (FMIndex, SeqStore,
-                                              build_reverse_fused,
-                                              repeat_rich_genome, sample_reads)
+    from dream_yara_tpu_torch.index.bifm import build_reverse_fused
+    from dream_yara_tpu_torch.index.fmindex import FMIndex
+    from dream_yara_tpu_torch.io.seqstore import SeqStore
+    from dream_yara_tpu_torch.utils.simulate import repeat_rich_genome, sample_reads
 
     rng = np.random.default_rng(9)
     g, ann = repeat_rich_genome(rng, 200_000, alu_count=100, tandem_loci=4,
@@ -152,8 +153,11 @@ def test_stacked_kernel_equals_plain_edition(cuda_device, lens, C, L, E, edges):
 def test_flat_step_on_card_equals_cpu(cuda_device):
     """One mesh step (classify, route, flat map) of a small bloom-filtered
     database: the card's MeshMapOut equals the CPU's, and so do the SAMs."""
-    from dream_yara_tpu_torch._shared import (FMIndex, InterleavedBloomFilter,
-                                              MapperOptions, ReadBatch, SeqStore)
+    from dream_yara_tpu_torch.index.fmindex import FMIndex
+    from dream_yara_tpu_torch.index.ibf import InterleavedBloomFilter
+    from dream_yara_tpu_torch.io.readstore import ReadBatch
+    from dream_yara_tpu_torch.io.seqstore import SeqStore
+    from dream_yara_tpu_torch.utils.options import MapperOptions
     from dream_yara_tpu_torch.ops.device_index import to_device
     from dream_yara_tpu_torch.parallel.dist_mapper import (fetch_mesh_out,
                                                            pack_batch_blob)

@@ -13,6 +13,8 @@ from dream_yara_tpu.index.ibf import InterleavedBloomFilter
 from dream_yara_tpu.index.kdx import DirectKmerFilter
 from dream_yara_tpu.ops import ibf_query as jq
 from dream_yara_tpu.ops.readpack import pack_blob_with_lengths
+from dream_yara_tpu_torch.index.ibf import InterleavedBloomFilter as TIBF
+from dream_yara_tpu_torch.index.kdx import DirectKmerFilter as TKdx
 from dream_yara_tpu_torch.ops import ibf_query as tq
 from dream_yara_tpu_torch.ops import row_gather_cuda
 from tests.conftest import random_text
@@ -31,11 +33,11 @@ def _words(filt):
     return torch.from_numpy(np.ascontiguousarray(filt.words).view(np.int32))
 
 
-def _filter(mode, genomes):
+def _filter(mode, genomes, ibf=InterleavedBloomFilter, kdx=DirectKmerFilter):
     if mode == "direct":
-        f = DirectKmerFilter.create(B, k=10)
+        f = kdx.create(B, k=10)
     else:
-        f = InterleavedBloomFilter.create(
+        f = ibf.create(
             B, size_bits=1 << 22, n_hashes=3, k=K,
             window=25 if mode == "minimizer" else 0,
             canonical=mode != "classic", blocked=mode != "classic")
@@ -82,6 +84,18 @@ def filters(genomes):
             for m in ("blocked", "classic", "direct", "minimizer")}
 
 
+@pytest.fixture(scope="module")
+def tfilters(genomes, filters):
+    """The same filters built by the port's own host classes: their words
+    and slack tables equal the reference's."""
+    out = {m: _filter(m, genomes, TIBF, TKdx) for m in filters}
+    for m, f in filters.items():
+        np.testing.assert_array_equal(out[m].words, f.words, err_msg=m)
+        np.testing.assert_array_equal(getattr(out[m], "slack_table", None),
+                                      getattr(f, "slack_table", None), err_msg=m)
+    return out
+
+
 def test_fmix32_and_mul32_wrap_like_uint32():
     rng = np.random.default_rng(3)
     h = rng.integers(0, 1 << 32, 4096, dtype=np.uint64).astype(np.uint32)
@@ -124,17 +138,18 @@ def _mode_kw(f):
 
 @pytest.mark.parametrize("mode", ["blocked", "blocked_rows", "blocked_chunked",
                                   "classic", "direct", "minimizer"])
-def test_ibf_bin_counts_equal(genomes, filters, mode, monkeypatch):
+def test_ibf_bin_counts_equal(genomes, filters, tfilters, mode, monkeypatch):
     """blocked_rows: the host_block_rows layout (block_s > 0) that
     classify uploads; blocked_chunked: several read chunks per call."""
     f = filters[mode.split("_")[0]]
+    tf = tfilters[mode.split("_")[0]]
     reads, lens = _reads(np.random.default_rng(6), genomes)
     kw = dict(_mode_kw(f), n_bins=B)
     want = jq.ibf_bin_counts(jnp.asarray(f.words), jnp.asarray(reads),
                              jnp.asarray(lens), f.k, f.n_hashes, **kw)
-    words = _words(f)
+    words = _words(tf)
     if mode == "blocked_rows":
-        rows, S = tq.host_block_rows(f.words, B)
+        rows, S = tq.host_block_rows(tf.words, B)
         jrows, jS = jq.host_block_rows(f.words, B)
         assert S == jS and np.array_equal(rows, jrows)
         words = torch.from_numpy(rows.view(np.int32))
@@ -148,11 +163,11 @@ def test_ibf_bin_counts_equal(genomes, filters, mode, monkeypatch):
     assert row_gather_cuda.kernel.launches == 0               # CPU: plain edition
 
 
-def test_classify_thresholds_equal(filters):
+def test_classify_thresholds_equal(tfilters):
     rng = np.random.default_rng(7)
     lens = rng.integers(0, 300, 64).astype(np.int32)
     n_sel = rng.integers(0, 80, 64).astype(np.int32)
-    slack = np.asarray(filters["minimizer"].slack_table, np.int32)
+    slack = np.asarray(tfilters["minimizer"].slack_table, np.int32)
     for window, tab in ((0, None), (25, None), (25, slack)):
         want = jq.classify_thresholds(jnp.asarray(lens), jnp.asarray(n_sel), K,
                                       window, 300,
@@ -164,10 +179,11 @@ def test_classify_thresholds_equal(filters):
 
 
 @pytest.mark.parametrize("mode", ["blocked", "classic", "direct", "minimizer"])
-def test_ibf_classify_packed_equal(genomes, filters, mode):
+def test_ibf_classify_packed_equal(genomes, tfilters, mode):
     """The packed candidate mask of a blob, thresholds included, as the
-    classifier calls it (blocked: host_block_rows layout, n_bins = B)."""
-    f = filters[mode]
+    classifier calls it (blocked: host_block_rows layout, n_bins = B), on
+    the port's filter (equal to the reference's, see `tfilters`)."""
+    f = tfilters[mode]
     reads, lens = _reads(np.random.default_rng(8), genomes, R=20)
     L = reads.shape[1]
     half = len(lens)
@@ -199,7 +215,7 @@ def test_ibf_classify_packed_equal(genomes, filters, mode):
 def test_classify_packed_sets_bit_31():
     """A 64-bin filter with every bit set: the packed word of every read
     has bit 31 set, and the port's int32 words carry it."""
-    f = InterleavedBloomFilter.create(40, size_bits=1 << 20, n_hashes=3, k=K)
+    f = TIBF.create(40, size_bits=1 << 20, n_hashes=3, k=K)
     f.words[:] = 0xFFFFFFFF
     rng = np.random.default_rng(9)
     reads = rng.integers(0, 4, (6, 100)).astype(np.int8)

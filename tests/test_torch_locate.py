@@ -18,6 +18,7 @@ from dream_yara_tpu.ops.device_index import DeviceFM as JDeviceFM
 from dream_yara_tpu_torch.ops import backward_search as tbs
 from dream_yara_tpu_torch.ops import locate as tloc
 from dream_yara_tpu_torch.ops import rank as trank
+from dream_yara_tpu_torch.index.fmindex import FMIndex as TFMIndex
 from dream_yara_tpu_torch.ops.device_index import DeviceFM
 from tests.conftest import random_text
 
@@ -43,7 +44,8 @@ def index():
     store = SeqStore.from_seqs(["a", "b", "c"], [g[:2500], g[2500:6100], g[6100:]])
     fm = FMIndex.build(store.text, prefix_q=5)
     assert fm.n % 128 != 0
-    return store, fm
+    tfm = TFMIndex.build(store.text, prefix_q=5)   # the port's own host index
+    return store, fm, tfm
 
 
 def _query_rows(rng, n, Q):
@@ -68,9 +70,12 @@ def test_gather_hit_rows_equals_jax():
 def test_locate_sampled_equals_jax_and_full_sa(index, rate):
     """Both editions on the same rows and mask as the JAX editions, and the
     fused edition equal to the full SA on every valid lane."""
-    store, fm = index
+    store, fm, tfm = index
     fms = fm.subsample_sa(rate)
-    t = DeviceFM.from_host(fms, store.text, CPU)
+    tfms = tfm.subsample_sa(rate)
+    for k, v in vars(fms).items():
+        np.testing.assert_array_equal(getattr(tfms, k), v, err_msg=k)
+    t = DeviceFM.from_host(tfms, store.text, CPU)
     j = JDeviceFM.from_host(fms, store.text)
     rng = np.random.default_rng(rate)
     rows = _query_rows(rng, fm.n, 3000)
@@ -105,7 +110,7 @@ def test_locate_sampled_equals_jax_and_full_sa(index, rate):
 
 def test_device_index_sampled_fields(index):
     """The sampled fields ship as the host arrays (mark words as int32 bits)."""
-    store, fm = index
+    store, _, fm = index
     fms = fm.subsample_sa(8)
     t = DeviceFM.from_host(fms, store.text, CPU)
     assert t.sa_mark_bits.dtype == torch.int32 and t.sa_mark_bits.shape[0] % 4 == 0
@@ -119,8 +124,8 @@ def test_device_index_sampled_fields(index):
 
 
 def test_rank_raw_equals_jax(index):
-    store, fm = index
-    t = DeviceFM.from_host(fm, store.text, CPU)
+    store, fm, tfm = index
+    t = DeviceFM.from_host(tfm, store.text, CPU)
     j = JDeviceFM.from_host(fm, store.text)
     rng = np.random.default_rng(8)
     i = np.concatenate([[0, 1, 127, 128, fm.n - 1, fm.n],
@@ -138,7 +143,7 @@ def test_rank_all_fused_rows_equals_jax(n):
     rng = np.random.default_rng(n)
     text = random_text(rng, n - 1, n_rate=0.01)
     text = np.concatenate([text, [5]]).astype(np.int8)
-    fm = FMIndex.build(text)
+    fm = TFMIndex.build(text)
     fused = trank.build_fused_rank_rows(fm.bwt_blocks, fm.occ)
     i = np.concatenate([np.arange(0, 300), np.arange(n - 200, n + 1),
                         rng.integers(0, n + 1, 2000)]).astype(np.int32)
@@ -151,7 +156,7 @@ def test_rank_all_fused_rows_equals_jax(n):
 
 
 def test_decode_fused_row_np_equals_jax(index):
-    _, fm = index
+    _, _, fm = index
     fused = trank.build_fused_rank_rows(fm.bwt_blocks, fm.occ)
     for b in (0, 5, fused.shape[0] - 2, fused.shape[0] - 1):
         got, want = trank.decode_fused_row_np(fused[b]), jrank.decode_fused_row_np(fused[b])

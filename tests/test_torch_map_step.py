@@ -13,6 +13,7 @@ from dream_yara_tpu.io.seqstore import SeqStore
 from dream_yara_tpu.ops.device_index import DeviceFM as JDeviceFM
 from dream_yara_tpu.pipeline import map_step as jms
 from dream_yara_tpu.utils.alphabet import revcomp
+from dream_yara_tpu_torch.index.fmindex import FMIndex as TFMIndex
 from dream_yara_tpu_torch.ops.device_index import DeviceFM
 from dream_yara_tpu_torch.ops.readpack import pack_blob_with_lengths
 from dream_yara_tpu_torch.pipeline import map_step as tms
@@ -96,10 +97,11 @@ def chunk():
     lens = np.full(n, L, np.int32)
     lens[-1] = 91
     seqs[-1, 91:] = 4
-    return store, fm, seqs, lens
+    tfm = TFMIndex.build(store.text, prefix_q=7)    # the port's own host index
+    return store, fm, tfm, seqs, lens
 
 
-def _run_steps(store, fm, seqs, lens, half, uniform_len, **kw):
+def _run_steps(store, fm, tfm, seqs, lens, half, uniform_len, **kw):
     L = seqs.shape[1]
     lens_c = np.zeros(half, np.int32)
     lens_c[: len(lens)] = lens
@@ -109,7 +111,7 @@ def _run_steps(store, fm, seqs, lens, half, uniform_len, **kw):
                    capacity=4, max_slen=jms.max_seed_len_static(L, rate_ppm),
                    prefix_q=fm.prefix_q, uniform_len=uniform_len, **kw)
     t = tms.single_bin_map_step_packed(
-        DeviceFM.from_host(fm, store.text, CPU),
+        DeviceFM.from_host(tfm, store.text, CPU),
         torch.from_numpy(blob.view(np.int32)), **step_kw)
     j = jms.single_bin_map_step_packed(
         JDeviceFM.from_host(fm, store.text), jnp.asarray(blob),
@@ -127,17 +129,17 @@ def _run_steps(store, fm, seqs, lens, half, uniform_len, **kw):
 @pytest.mark.parametrize("mode", ["compact", "compact_spill", "dense",
                                   "per_row", "gather_path", "sampled"])
 def test_map_step_packed_equals_jax(chunk, mode):
-    store, fm, seqs, lens = chunk
+    store, fm, tfm, seqs, lens = chunk
     uniform = mode != "gather_path"
     if uniform:   # the fast path needs every read at full length
         seqs, lens = seqs[:-1], lens[:-1]
     if mode == "sampled":   # hits located by the LF walk in both packages
-        fm = fm.subsample_sa(4)
+        fm, tfm = fm.subsample_sa(4), tfm.subsample_sa(4)
     kw = {"compact": dict(compact_cap=256), "compact_spill": dict(compact_cap=24),
           "dense": dict(verify_capacity=None), "per_row": dict(verify_capacity=3),
           "gather_path": dict(compact_cap=256),
           "sampled": dict(compact_cap=256, sample_rate=4)}[mode]
-    got, want = _run_steps(store, fm, seqs, lens, 128, uniform, **kw)
+    got, want = _run_steps(store, fm, tfm, seqs, lens, 128, uniform, **kw)
     ok = np.asarray(got.ok)
     _eq(ok, want.ok, "ok")
     for f in ("row", "begin", "end", "dist"):

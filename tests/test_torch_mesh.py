@@ -22,6 +22,10 @@ from dream_yara_tpu.pipeline import mapper as jmapper
 from dream_yara_tpu.utils.alphabet import revcomp
 from dream_yara_tpu.utils.options import MapperOptions
 from dream_yara_tpu.utils.timer import StageTimers
+from dream_yara_tpu_torch.index.fmindex import FMIndex as TFMIndex
+from dream_yara_tpu_torch.index.ibf import InterleavedBloomFilter as TIBF
+from dream_yara_tpu_torch.index.kdx import DirectKmerFilter as TKdx
+from dream_yara_tpu_torch.io.seqstore import SeqStore as TSeqStore
 from dream_yara_tpu_torch.ops import banded_verify_cuda, row_gather_cuda
 from dream_yara_tpu_torch.parallel import dist_mapper as tdist
 from dream_yara_tpu_torch.parallel import dream_mesh as tmesh
@@ -43,18 +47,31 @@ def small_repetitive_groups(monkeypatch):
 
 
 def _index(genomes, filt=None, kind="none", rate=1):
-    stores = [SeqStore.from_seqs([f"g{b}"], [g]) for b, g in enumerate(genomes)]
-    fms = [FMIndex.build(st.text, sample_rate=rate) for st in stores]
-    return (jdm.DreamIndex(stores, fms, filt, kind),
-            tdm.DreamIndex(stores, fms, filt, kind, device=CPU))
+    """Each package's DreamIndex over the same bins, its stores and FM
+    indexes built by its own host classes; `filt` is a pair of filters
+    (reference, port) or None."""
+    jf, tf = filt or (None, None)
+    idx = []
+    for SeqStore_, FMIndex_ in ((SeqStore, FMIndex), (TSeqStore, TFMIndex)):
+        stores = [SeqStore_.from_seqs([f"g{b}"], [g]) for b, g in enumerate(genomes)]
+        idx.append(([FMIndex_.build(st.text, sample_rate=rate) for st in stores],
+                    stores))
+    (jfms, jst), (tfms, tst) = idx
+    return (jdm.DreamIndex(jst, jfms, jf, kind),
+            tdm.DreamIndex(tst, tfms, tf, kind, device=CPU))
 
 
-def _bloom(genomes, **kw):
-    filt = InterleavedBloomFilter.create(len(genomes), size_bits=1 << 22,
-                                         n_hashes=3, k=19, **kw)
+def _filled(filt, genomes):
     for b, g in enumerate(genomes):
         filt.add_kmers(g, b)
     return filt
+
+
+def _bloom(genomes, **kw):
+    """The same blocked bloom filter built by the reference and the port."""
+    return tuple(_filled(cls.create(len(genomes), size_bits=1 << 22, n_hashes=3,
+                                    k=19, **kw), genomes)
+                 for cls in (InterleavedBloomFilter, TIBF))
 
 
 def _planted(rng, genomes, n_per_bin=6, read_len=100, n_sub=2, tag="b"):
@@ -210,17 +227,18 @@ def test_mesh_kmer_direct_and_minimizer(db_and_reads):
     bloom filter route through the step's classify as the single-device
     classifier does."""
     genomes, jidx, tidx, batch, truth = db_and_reads
-    kdx = DirectKmerFilter.create(4, k=12)
-    for b, g in enumerate(genomes):
-        kdx.add_kmers(g, b)
-    jk, tk = (jdm.DreamIndex(jidx.stores, jidx.fms, kdx, "kmer_direct"),
-              tdm.DreamIndex(tidx.stores, tidx.fms, kdx, "kmer_direct", device=CPU))
+    jkdx, tkdx = (_filled(cls.create(4, k=12), genomes)
+                  for cls in (DirectKmerFilter, TKdx))
+    jk, tk = (jdm.DreamIndex(jidx.stores, jidx.fms, jkdx, "kmer_direct"),
+              tdm.DreamIndex(tidx.stores, tidx.fms, tkdx, "kmer_direct", device=CPU))
     jm, tm = _check(jk, tk, batch)
     assert tm.use_filter and tm.direct
-    mini = _bloom(genomes, window=27)
-    mini.calibrate(e_max=4, trials=200, read_lens=(100,))
-    _check(jdm.DreamIndex(jidx.stores, jidx.fms, mini, "bloom"),
-           tdm.DreamIndex(tidx.stores, tidx.fms, mini, "bloom", device=CPU), batch)
+    jmini, tmini = _bloom(genomes, window=27)
+    for mini in (jmini, tmini):
+        mini.calibrate(e_max=4, trials=200, read_lens=(100,))
+    np.testing.assert_array_equal(tmini.slack_table, jmini.slack_table)
+    _check(jdm.DreamIndex(jidx.stores, jidx.fms, jmini, "bloom"),
+           tdm.DreamIndex(tidx.stores, tidx.fms, tmini, "bloom", device=CPU), batch)
 
 
 def test_mesh_pe_and_no_filter(db_and_reads):

@@ -18,6 +18,9 @@ from dream_yara_tpu.pipeline import mapper as jmapper
 from dream_yara_tpu.pipeline.matches import dedup_matches, rank_matches
 from dream_yara_tpu.utils.alphabet import revcomp
 from dream_yara_tpu.utils.options import MapperOptions
+from dream_yara_tpu_torch.index.fmindex import FMIndex as TFMIndex
+from dream_yara_tpu_torch.index.ibf import InterleavedBloomFilter as TIBF
+from dream_yara_tpu_torch.io.seqstore import SeqStore as TSeqStore
 from dream_yara_tpu_torch.ops import banded_verify_cuda, row_gather_cuda
 from dream_yara_tpu_torch.pipeline import dis_mapper as tdm
 from dream_yara_tpu_torch.pipeline import mapper as tmapper
@@ -34,18 +37,25 @@ OPTS = MapperOptions(error_rate=0.03, library_length=LL, library_deviation=LD,
 @pytest.fixture(scope="module")
 def db():
     """tests/test_dream.py's database: 4 bins of 8,000 bp, a blocked
-    canonical 2^22-bit filter; bin 3 has two contigs."""
+    canonical 2^22-bit filter; bin 3 has two contigs. Built twice: by the
+    reference's host classes (for the JAX side) and by the port's (for the
+    port), as (stores, fms, ibf) each."""
     rng = np.random.default_rng(21)
     genomes = [random_text(rng, 8000) for _ in range(B)]
-    stores = [SeqStore.from_seqs([f"b{b}c0"], [genomes[b]]) for b in range(3)]
-    stores.append(SeqStore.from_seqs(["b3c0", "b3c1"],
-                                     [genomes[3][:5000], genomes[3][5000:]]))
-    fms = [FMIndex.build(st.text) for st in stores]
-    ibf = InterleavedBloomFilter.create(B, size_bits=1 << 22, n_hashes=3, k=19)
-    assert ibf.blocked == 1 and ibf.canonical == 1
-    for b, g in enumerate(genomes):
-        ibf.add_kmers(g, b)
-    return rng, genomes, stores, fms, ibf
+    built = []
+    for SeqStore_, FMIndex_, IBF_ in ((SeqStore, FMIndex, InterleavedBloomFilter),
+                                      (TSeqStore, TFMIndex, TIBF)):
+        stores = [SeqStore_.from_seqs([f"b{b}c0"], [genomes[b]]) for b in range(3)]
+        stores.append(SeqStore_.from_seqs(["b3c0", "b3c1"],
+                                          [genomes[3][:5000], genomes[3][5000:]]))
+        fms = [FMIndex_.build(st.text) for st in stores]
+        ibf = IBF_.create(B, size_bits=1 << 22, n_hashes=3, k=19)
+        assert ibf.blocked == 1 and ibf.canonical == 1
+        for b, g in enumerate(genomes):
+            ibf.add_kmers(g, b)
+        built.append((stores, fms, ibf))
+    np.testing.assert_array_equal(built[1][2].words, built[0][2].words)
+    return rng, genomes, built[0], built[1]
 
 
 def pe_batch(rng, genomes, n_pairs, read_len=100, junk=0.05, tag="p"):
@@ -83,11 +93,10 @@ def se_batch(rng, genomes, n, read_len=100):
     return ReadBatch.from_reads([f"s{i}" for i in range(len(reads))], reads)
 
 
-def _indexes(db, filt=None, kind="bloom"):
-    _, _, stores, fms, ibf = db
-    filt = ibf if filt is None else filt
-    return (jdm.DreamIndex(stores, fms, filt, kind),
-            tdm.DreamIndex(stores, fms, filt, kind, device=CPU))
+def _indexes(db, kind="bloom"):
+    (jst, jfms, jibf), (tst, tfms, tibf) = db[2], db[3]
+    return (jdm.DreamIndex(jst, jfms, jibf, kind),
+            tdm.DreamIndex(tst, tfms, tibf, kind, device=CPU))
 
 
 def test_classify_reads_equal(db):
@@ -144,7 +153,7 @@ def test_dream_map_stream_bloom_pe_byte_identical(db):
 def test_rescue_global_equal(db):
     """Mate rescue across bins: with every mate-2 match stripped, the
     rescue re-finds the mates in their bins, as the reference does."""
-    rng, genomes, stores = db[0], db[1], db[2]
+    rng, genomes = db[0], db[1]
     batch, bins = pe_batch(rng, genomes, 16, junk=0.0)
     jidx, tidx = _indexes(db)
     m = jdm.dis_map_batch(jidx, batch, OPTS)
@@ -162,10 +171,10 @@ def test_rescue_global_equal(db):
 
 def test_map_paired_bin_equal(db):
     """The single-bin PE path: ranked matches, CIGARs, pair info and SAM."""
-    rng, genomes, stores, fms = db[0], db[1], db[2], db[3]
+    rng, genomes, (stores, fms, _), (tst, tfms, _) = db
     batch, _ = pe_batch(rng, genomes[3:], 20, junk=0.1)
     want = jmapper.map_paired_bin(stores[3], fms[3], batch, OPTS)
-    got = tmapper.map_paired_bin(stores[3], fms[3], batch, OPTS, CPU)
+    got = tmapper.map_paired_bin(tst[3], tfms[3], batch, OPTS, CPU)
     wm, gm = want[0].matches, got[0].matches
     for f in ("read_id", "begin", "end", "dist", "strand"):
         np.testing.assert_array_equal(getattr(gm, f), getattr(wm, f), f)
@@ -174,10 +183,10 @@ def test_map_paired_bin_equal(db):
     for f in ("primary_idx", "proper", "tlen"):
         np.testing.assert_array_equal(getattr(got[3], f), getattr(want[3], f), f)
     want_sam = jmapper.paired_bin_sam(stores[3], fms[3], batch, OPTS, "pe")
-    assert tmapper.paired_bin_sam(stores[3], fms[3], batch, OPTS, CPU,
+    assert tmapper.paired_bin_sam(tst[3], tfms[3], batch, OPTS, CPU,
                                   "pe") == want_sam
     # single_bin_sam dispatches a paired batch to the PE path
-    assert tmapper.single_bin_sam(stores[3], fms[3], batch, OPTS, CPU,
+    assert tmapper.single_bin_sam(tst[3], tfms[3], batch, OPTS, CPU,
                                   "pe") == want_sam
 
 

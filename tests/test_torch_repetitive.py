@@ -27,7 +27,11 @@ from dream_yara_tpu.pipeline import map_step as jms
 from dream_yara_tpu.utils.options import MapperOptions
 from dream_yara_tpu.utils.simulate import repeat_rich_genome, sample_reads
 from dream_yara_tpu.utils.timer import StageTimers
-from dream_yara_tpu_torch._shared import build_reverse_fused
+from dream_yara_tpu.index.bifm import build_reverse_fused as j_build_reverse_fused
+from dream_yara_tpu_torch.index.bifm import build_reverse_fused
+from dream_yara_tpu_torch.index.fmindex import FMIndex as TFMIndex
+from dream_yara_tpu_torch.index.ibf import InterleavedBloomFilter as TIBF
+from dream_yara_tpu_torch.io.seqstore import SeqStore as TSeqStore
 from dream_yara_tpu_torch.ops.device_index import DeviceFM
 from dream_yara_tpu_torch.pipeline import dis_mapper as tdm
 from dream_yara_tpu_torch.pipeline import map_step as tms
@@ -45,20 +49,26 @@ def _eq(t, j, msg=""):
 @pytest.fixture(scope="module")
 def rich():
     """One 60 kbp repeat-rich bin, its reverse rows, and 40 reads (half from
-    repeat copies) as a (fwd | revcomp) row matrix; read 3 is 90 bp."""
+    repeat copies) as a (fwd | revcomp) row matrix; read 3 is 90 bp. The
+    store, index and reverse rows are built by each package's host code:
+    (store, fm, rfused) the reference's, then the port's."""
     rng = np.random.default_rng(3)
     g, ann = repeat_rich_genome(rng, 60_000, alu_count=40, tandem_loci=3,
                                 n_runs=2)
     store = SeqStore.from_seqs(["g"], [g])
     fm = FMIndex.build(store.text)
-    rfused, _ = build_reverse_fused(store.text)
+    rfused, _ = j_build_reverse_fused(store.text)
+    tstore = TSeqStore.from_seqs(["g"], [g])
+    tfm = TFMIndex.build(tstore.text)
+    trfused, _ = build_reverse_fused(tstore.text)
+    np.testing.assert_array_equal(trfused, rfused)
     reads, _ = sample_reads(rng, g, 40, regions=ann["alu"] + ann["tandem"])
     R = np.stack(reads).astype(np.int8)
     rows = np.concatenate([R, R[:, ::-1]])
     lens = np.full(40, 100, np.int32)
     lens[3] = 90
     rows[[3, 43], 90:] = 4
-    return store, fm, rfused, rows, lens
+    return store, fm, rfused, rows, lens, (tstore, tfm, trfused)
 
 
 @pytest.mark.parametrize("budget,indels,backend,m", [
@@ -67,7 +77,7 @@ def rich():
 def test_repetitive_map_step_equals_jax(rich, budget, indels, backend, m):
     """A 16-row group (two rows masked, one ragged) with each backend; the
     port at sample rate 4 gives the same output as on the full SA."""
-    store, fm, rfused, reads, lens = rich
+    store, fm, rfused, reads, lens, (_, tfm, trfused) = rich
     rep_rows = np.arange(0, 80, 5, dtype=np.int32)
     mask = np.ones(16, bool)
     mask[-2:] = False
@@ -79,9 +89,9 @@ def test_repetitive_map_step_equals_jax(rich, budget, indels, backend, m):
     args = (torch.from_numpy(reads), torch.from_numpy(lens),
             torch.from_numpy(rep_rows), torch.from_numpy(mask))
     got = tms.repetitive_map_step(
-        DeviceFM.from_host(fm, store.text, CPU, rfused=rfused), *args, **kw)
+        DeviceFM.from_host(tfm, store.text, CPU, rfused=trfused), *args, **kw)
     got4 = tms.repetitive_map_step(
-        DeviceFM.from_host(fm.subsample_sa(4), store.text, CPU, rfused=rfused),
+        DeviceFM.from_host(tfm.subsample_sa(4), store.text, CPU, rfused=trfused),
         *args, sample_rate=4, **kw)
     for g, g4, w, name in zip(got, got4, want,
                               ["row", "begin", "end", "dist", "ok", "n_spilled"]):
@@ -114,10 +124,11 @@ def test_sampled_strata_give_full_sa_output():
             sample_rate=f.sample_rate, **kw)
 
     fm4 = fm.subsample_sa(4)
+    tfm = TFMIndex.build(store.text)               # the port's own host index
     want = jax_step(fm)
     ok = np.asarray(want[4])
     assert sorted(set(np.asarray(want[1])[ok].tolist())) == [4850, 5150, 5450, 5750]
-    for got in (port_step(fm), port_step(fm4)):
+    for got in (port_step(tfm), port_step(tfm.subsample_sa(4))):
         for g, w in zip(got, want):
             _eq(g, w)
     assert int(np.asarray(jax_step(fm4)[4]).sum()) == 0   # the reference fault
@@ -126,7 +137,7 @@ def test_sampled_strata_give_full_sa_output():
 def test_seed_backend_equals_jax(rich, monkeypatch):
     """Every decision input: the sidecar, indels, ragged windows, no rows,
     opts.seed_backend and DY_SEED_BACKEND."""
-    store, fm, rfused, _, _ = rich
+    store, fm, rfused, _, _, (tstore, tfm, trfused) = rich
     lens = np.array([100, 100, 90, 100], np.int32)
     cases = []
     for env in (None, "enum", "bidir", "auto"):
@@ -136,9 +147,9 @@ def test_seed_backend_equals_jax(rich, monkeypatch):
                 for budget, indels, t_max in ((1, False, 32), (1, True, 32),
                                               (2, False, 16), (1, False, 48)):
                     cases.append((env, opt, rows, budget, indels, t_max))
-    for rf in (rfused, None):
+    for rf, trf in ((rfused, trfused), (None, None)):
         jbm = jmapper.BinMapper(store, fm, MapperOptions(), rfused=rf)
-        tbm = tmapper.BinMapper(store, fm, MapperOptions(), CPU, rfused=rf)
+        tbm = tmapper.BinMapper(tstore, tfm, MapperOptions(), CPU, rfused=trf)
         seen = set()
         for env, opt, rows, budget, indels, t_max in cases:
             if env is None:
@@ -156,7 +167,7 @@ def test_seed_backend_equals_jax(rich, monkeypatch):
 def test_dream_index_load_sidecars(rich, tmp_path, capsys):
     """A fresh `.rfm` sidecar loads, a stale one (another text's rows) is
     ignored with a message, as in the reference."""
-    store, fm, rfused, _, _ = rich
+    store, fm, rfused, _, _, _ = rich
     other = SeqStore.from_seqs(["o"], [store.text[:30_000] % 4])
     stores, fms = [store, other], [fm, FMIndex.build(other.text)]
     (tmp_path / "bins").mkdir()
@@ -188,19 +199,24 @@ def rich_db():
                                     n_runs=2)
         genomes.append(g)
         anns.append(ann)
-    stores = [SeqStore.from_seqs([f"g{b}"], [g]) for b, g in enumerate(genomes)]
-    fms = [FMIndex.build(st.text) for st in stores]
-    rfused = {b: build_reverse_fused(st.text)[0] for b, st in enumerate(stores)}
-    filt = InterleavedBloomFilter.create(3, size_bits=1 << 23, n_hashes=3, k=19)
-    for b, g in enumerate(genomes):
-        filt.add_kmers(g, b)
+    built = []        # (stores, fms, rfused, filter): the reference's, the port's
+    for SeqStore_, FMIndex_, IBF_, reverse in (
+            (SeqStore, FMIndex, InterleavedBloomFilter, j_build_reverse_fused),
+            (TSeqStore, TFMIndex, TIBF, build_reverse_fused)):
+        stores = [SeqStore_.from_seqs([f"g{b}"], [g]) for b, g in enumerate(genomes)]
+        fms = [FMIndex_.build(st.text) for st in stores]
+        rfused = {b: reverse(st.text)[0] for b, st in enumerate(stores)}
+        filt = IBF_.create(3, size_bits=1 << 23, n_hashes=3, k=19)
+        for b, g in enumerate(genomes):
+            filt.add_kmers(g, b)
+        built.append((stores, fms, rfused, filt))
     names, reads = [], []
     rng = np.random.default_rng(11)
     for b, g in enumerate(genomes):
         rs, _ = sample_reads(rng, g, 20, regions=anns[b]["alu"] + anns[b]["tandem"])
         reads += rs
         names += [f"b{b}r{i}" for i in range(len(rs))]
-    return stores, fms, rfused, filt, ReadBatch.from_reads(names, reads)
+    return built[0], built[1], ReadBatch.from_reads(names, reads)
 
 
 @pytest.mark.parametrize("sidecar,indels", [(False, True), (True, True),
@@ -211,17 +227,17 @@ def test_sam_high_repeat_rich_byte_identical(rich_db, sidecar, indels,
     on the full SA and on a rate-4 sampled SA gives the JAX package's
     full-SA SAM bytes, with and without the bidirectional sidecars; with
     indels off the sidecar puts stratum 1 on the bidir backend."""
-    stores, fms, rfused, filt, batch = rich_db
+    (stores, fms, rfused, filt), (tst, tfms, trfused, tfilt), batch = rich_db
     monkeypatch.setattr(jmapper.BinMapper, "REP_PAD", 64)
     monkeypatch.setattr(tmapper.BinMapper, "REP_PAD", 64)
     monkeypatch.delenv("DY_SEED_BACKEND", raising=False)
-    rf = rfused if sidecar else None
+    rf, trf = (rfused, trfused) if sidecar else (None, None)
     opts = MapperOptions(error_rate=0.03, indels=indels)
     want = jdm.dream_map_sam(jdm.DreamIndex(stores, fms, filt, "bloom",
                                             rfused=rf), batch, opts)
-    for f in (fms, [fm.subsample_sa(4) for fm in fms]):
+    for f in (tfms, [fm.subsample_sa(4) for fm in tfms]):
         timers = StageTimers()
-        index = tdm.DreamIndex(stores, f, filt, "bloom", device=CPU, rfused=rf)
+        index = tdm.DreamIndex(tst, f, tfilt, "bloom", device=CPU, rfused=trf)
         assert tdm.dream_map_sam(index, batch, opts, timers=timers) == want
         assert timers.totals.get("repetitive re-seed (device)", 0) > 0
         groups = {k for k in timers.totals if k.startswith("repetitive stratum")}

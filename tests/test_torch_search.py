@@ -15,6 +15,7 @@ from dream_yara_tpu.io.seqstore import SeqStore
 from dream_yara_tpu.ops import readpack as jrp
 from dream_yara_tpu.ops.device_index import DeviceFM as JDeviceFM
 from dream_yara_tpu.pipeline import seeding as jseed
+from dream_yara_tpu_torch.index.fmindex import FMIndex as TFMIndex
 from dream_yara_tpu_torch.ops import backward_search as tbs
 from dream_yara_tpu_torch.ops import rank as trank
 from dream_yara_tpu_torch.ops import readpack as trp
@@ -41,12 +42,15 @@ def index():
     genome[5000:5010] = 4                      # a run of N in the text
     store = SeqStore.from_seqs(["a", "b"], [genome[:9000], genome[9000:]])
     fm = FMIndex.build(store.text, prefix_q=6)
-    return store, fm
+    tfm = TFMIndex.build(store.text, prefix_q=6)   # the port's own host index
+    for k, v in vars(fm).items():
+        np.testing.assert_array_equal(getattr(tfm, k), v, err_msg=k)
+    return store, fm, tfm
 
 
 def test_device_index_fields_equal_jax(index):
-    store, fm = index
-    t = DeviceFM.from_host(fm, store.text, CPU)
+    store, fm, tfm = index
+    t = DeviceFM.from_host(tfm, store.text, CPU)
     j = JDeviceFM.from_host(fm, store.text)
     for name in t._fields:
         if getattr(j, name) is None:         # sampled-SA and bidirectional fields
@@ -102,8 +106,8 @@ def test_make_seeds_equal_jax(rate, max_err):
 
 
 def test_rank_fused_equals_jax(index):
-    _, fm = index
-    fused = trank.build_fused_rank_rows(fm.bwt_blocks, fm.occ)
+    _, fm, tfm = index
+    fused = trank.build_fused_rank_rows(tfm.bwt_blocks, tfm.occ)
     np.testing.assert_array_equal(
         fused, jrank.build_fused_rank_rows(fm.bwt_blocks, fm.occ))
     rng = np.random.default_rng(5)
@@ -119,7 +123,7 @@ def test_rank_fused_equals_jax(index):
 def _seed_case(index, rng, n_rows=64, L=60):
     """Seeds cut from text windows: full-length, shorter than q, with N in
     their last q chars, empty (slens 0), and long enough to need every trip."""
-    store, fm = index
+    store = index[0]
     reads, _ = _reads(rng, store.text, n_rows, L)
     S = 4 * n_rows
     rows = np.repeat(np.arange(n_rows, dtype=np.int32), 4)
@@ -134,11 +138,11 @@ def _seed_case(index, rng, n_rows=64, L=60):
 
 @pytest.mark.parametrize("use_table", [False, True])
 def test_seed_search_equals_jax(index, use_table):
-    store, fm = index
+    store, fm, tfm = index
     rng = np.random.default_rng(77 + use_table)
     reads, rows, starts, slens = _seed_case(index, rng)
     msl = 24
-    t = DeviceFM.from_host(fm, store.text, CPU)
+    t = DeviceFM.from_host(tfm, store.text, CPU)
     j = JDeviceFM.from_host(fm, store.text)
     q = fm.prefix_q if use_table else 0
     got = tbs.seed_search(t.fused, t.counts, t.n, torch.from_numpy(reads),
@@ -162,7 +166,7 @@ def test_seed_search_chars_fe_equals_jax(index, msl):
     """The uniform-length fast path: seed chars handed over from the seed's
     end; msl 9 < the table jump depth + trips exercises the clamped columns,
     and seeds with N need the extra trips."""
-    store, fm = index
+    store, fm, tfm = index
     rng = np.random.default_rng(msl)
     n_rows, L = 40, 64
     reads, _ = _reads(rng, store.text, n_rows, L)
@@ -177,7 +181,7 @@ def test_seed_search_chars_fe_equals_jax(index, msl):
     for s in range(n_rows * ns):
         seg = reads[rows[s], starts[s] : starts[s] + slens[s]][::-1]
         chars_fe[s, : len(seg)] = seg
-    t = DeviceFM.from_host(fm, store.text, CPU)
+    t = DeviceFM.from_host(tfm, store.text, CPU)
     j = JDeviceFM.from_host(fm, store.text)
     got = tbs.seed_search(t.fused, t.counts, t.n, torch.from_numpy(reads),
                           torch.from_numpy(rows), torch.from_numpy(starts),
@@ -195,13 +199,13 @@ def test_seed_search_chars_fe_equals_jax(index, msl):
 
 
 def test_gather_hits_equals_jax(index):
-    store, fm = index
+    _, fm, tfm = index
     rng = np.random.default_rng(3)
     S, cap = 500, 8
     lo = rng.integers(0, fm.n, S).astype(np.int32)
     hi = (lo + rng.integers(0, 20, S)).clip(max=fm.n).astype(np.int32)
     lo[:3], hi[:3] = [fm.n - 2, 0, 5], [fm.n, 0, 5]
-    pos, mask, ovf = tbs.gather_hits(torch.from_numpy(fm.sa), torch.from_numpy(lo),
+    pos, mask, ovf = tbs.gather_hits(torch.from_numpy(tfm.sa), torch.from_numpy(lo),
                                      torch.from_numpy(hi), cap)
     jpos, jmask, jovf = jbs.gather_hits(jnp.asarray(fm.sa), jnp.asarray(lo),
                                         jnp.asarray(hi), cap)

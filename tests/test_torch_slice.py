@@ -23,6 +23,8 @@ from dream_yara_tpu.pipeline import dis_mapper as jdm
 from dream_yara_tpu.utils.alphabet import revcomp
 from dream_yara_tpu.utils.options import MapperOptions
 from dream_yara_tpu.utils.timer import StageTimers
+from dream_yara_tpu_torch.index.fmindex import FMIndex as TFMIndex
+from dream_yara_tpu_torch.io.seqstore import SeqStore as TSeqStore
 from dream_yara_tpu_torch.ops import banded_verify_cuda, row_gather_cuda
 from dream_yara_tpu_torch.pipeline import dis_mapper as tdm
 from dream_yara_tpu_torch.pipeline import mapper as tmapper
@@ -57,7 +59,11 @@ def db():
     stores = [SeqStore.from_seqs(["b0c0", "b0c1"], [g0[:2500], g0[2500:]]),
               SeqStore.from_seqs(["b1c0"], [np.concatenate([g1, g2])])]
     fms = [FMIndex.build(st.text) for st in stores]
-    return rng, stores, fms
+    # the same bins built by the port's own host classes
+    tstores = [TSeqStore.from_seqs(["b0c0", "b0c1"], [g0[:2500], g0[2500:]]),
+               TSeqStore.from_seqs(["b1c0"], [np.concatenate([g1, g2])])]
+    tfms = [TFMIndex.build(st.text) for st in tstores]
+    return rng, stores, fms, (tstores, tfms)
 
 
 def _batch(rng, stores, n, tag):
@@ -69,12 +75,12 @@ def _batch(rng, stores, n, tag):
 
 
 def test_dream_map_sam_byte_identical(db):
-    rng, stores, fms = db
+    rng, stores, fms, (tst, tfms) = db
     batch = _batch(rng, stores, 40, "s")
     opts = MapperOptions(error_rate=0.03, secondary_matches="tag")
     want = jdm.dream_map_sam(jdm.DreamIndex(stores, fms, None, "none"), batch,
                              opts, cmdline="parity")
-    index = tdm.DreamIndex(stores, fms, None, "none", device=CPU)
+    index = tdm.DreamIndex(tst, tfms, None, "none", device=CPU)
     stats = {}
     got = tdm.dream_map_sam(index, batch, opts, cmdline="parity", stats=stats)
     assert got == want
@@ -84,7 +90,7 @@ def test_dream_map_sam_byte_identical(db):
 def test_dream_map_stream_byte_identical(db):
     """Three batches through the stream with the finisher pool on;
     the last batch has mixed read lengths (the gather path)."""
-    rng, stores, fms = db
+    rng, stores, fms, (tst, tfms) = db
     batches = [_batch(rng, stores, 30, f"b{k}") for k in range(2)]
     mixed = _planted(rng, stores[1].text, 12, read_len=90)
     mixed += _planted(rng, stores[0].text, 12, read_len=100)
@@ -92,7 +98,7 @@ def test_dream_map_stream_byte_identical(db):
     opts = MapperOptions(error_rate=0.03, secondary_matches="record")
     want = list(jdm.dream_map_stream(jdm.DreamIndex(stores, fms, None, "none"),
                                      iter(batches), opts))
-    index = tdm.DreamIndex(stores, fms, None, "none", device=CPU)
+    index = tdm.DreamIndex(tst, tfms, None, "none", device=CPU)
     got = list(tdm.dream_map_stream(index, iter(batches), opts))
     assert len(got) == 3
     assert got == want
@@ -102,7 +108,7 @@ def test_dream_index_load_byte_identical(db, tmp_path):
     """A database directory (the indexer's layout) loads in both packages;
     without a filter file the default "bloom" request maps with filter
     none, and with one it routes through the prefilter."""
-    rng, stores, fms = db
+    rng, stores, fms, _ = db
     (tmp_path / "bins").mkdir()
     for b, (st, fm) in enumerate(zip(stores, fms)):
         st.save(jdm.bin_file(tmp_path, b, "store"))
@@ -136,20 +142,21 @@ def tandem():
     reads = [np.tile(unit, 3)[:100].copy() for _ in range(700)]
     reads += [genome[i * 3 : i * 3 + 100].copy() for i in range(300)]
     batch = ReadBatch.from_reads([f"r{i}" for i in range(len(reads))], reads)
-    return store, fm, batch
+    tstore = TSeqStore.from_seqs(["tand"], [genome])     # the port's own
+    return store, fm, batch, (tstore, TFMIndex.build(tstore.text))
 
 
 def test_spill_and_overflow_byte_identical(tandem, monkeypatch):
     """Small dense sub-chunks keep the CPU run short; the output does not
     depend on them (tests/test_pipeline_se.py::test_dense_reverify_subchunks)."""
-    store, fm, batch = tandem
+    store, fm, batch, (tstore, tfm) = tandem
     monkeypatch.setattr(jmapper.BinMapper, "DENSE_HALF", 512)
     monkeypatch.setattr(tmapper.BinMapper, "DENSE_HALF", 512)
     opts = MapperOptions(error_rate=0.03, sensitivity="full")
     want = jdm.dream_map_sam(jdm.DreamIndex([store], [fm], None, "none"),
                              batch, opts)
     timers = StageTimers()
-    index = tdm.DreamIndex([store], [fm], None, "none", device=CPU)
+    index = tdm.DreamIndex([tstore], [tfm], None, "none", device=CPU)
     got = tdm.dream_map_sam(index, batch, opts, timers=timers)
     assert timers.totals.get("dense re-verify (device)", 0) > 0
     assert timers.totals.get("overflow fallback", 0) > 0
@@ -160,7 +167,7 @@ def test_repetitive_pass_raises_not_implemented(tandem, monkeypatch):
     """Overflowing seeds under sensitivity "high" (the default) take the
     repetitive re-seed strata: the SAM is byte-identical to the JAX
     package's (the name dates from before the strata were ported)."""
-    store, fm, batch = tandem
+    store, fm, batch, (tstore, tfm) = tandem
     monkeypatch.setattr(jmapper.BinMapper, "DENSE_HALF", 512)
     monkeypatch.setattr(tmapper.BinMapper, "DENSE_HALF", 512)
     monkeypatch.setattr(jmapper.BinMapper, "REP_PAD", 64)
@@ -174,7 +181,7 @@ def test_repetitive_pass_raises_not_implemented(tandem, monkeypatch):
     want = jdm.dream_map_sam(jdm.DreamIndex([store], [fm], None, "none"),
                              sub, opts)
     timers = StageTimers()
-    index = tdm.DreamIndex([store], [fm], None, "none", device=CPU)
+    index = tdm.DreamIndex([tstore], [tfm], None, "none", device=CPU)
     assert tdm.dream_map_sam(index, sub, opts, timers=timers) == want
     assert timers.totals.get("repetitive re-seed (device)", 0) > 0
 
@@ -184,17 +191,18 @@ def test_unported_paths_raise(db, tandem, monkeypatch):
     on the same index, on the default path and through the host overflow
     pass's sampled locate (the name dates from before the sampled SA was
     ported); CPU runs never launch a kernel."""
-    rng, stores, fms = db
+    rng, stores, fms, (tst, tfms) = db
     batch = _batch(rng, stores, 20, "q")
     opts = MapperOptions(error_rate=0.03, sensitivity="full")
     fms4 = [fm.subsample_sa(4) for fm in fms]
     want = jdm.dream_map_sam(jdm.DreamIndex(stores, fms4, None, "none"),
                              batch, opts)
-    index = tdm.DreamIndex(stores, fms4, None, "none", device=CPU)
+    index = tdm.DreamIndex(tst, [fm.subsample_sa(4) for fm in tfms], None,
+                           "none", device=CPU)
     assert tdm.dream_map_sam(index, batch, opts) == want
     assert want == jdm.dream_map_sam(jdm.DreamIndex(stores, fms, None, "none"),
                                      batch, opts)
-    store, fm, tbatch = tandem
+    store, fm, tbatch, (tstore, tfm) = tandem
     monkeypatch.setattr(jmapper.BinMapper, "DENSE_HALF", 512)
     monkeypatch.setattr(tmapper.BinMapper, "DENSE_HALF", 512)
     ids = np.arange(680, 740)
@@ -203,7 +211,7 @@ def test_unported_paths_raise(db, tandem, monkeypatch):
                     lengths=tbatch.lengths[ids],
                     quals=[tbatch.quals[i] for i in ids], paired=False)
     timers = StageTimers()
-    index = tdm.DreamIndex([store], [fm.subsample_sa(4)], None, "none",
+    index = tdm.DreamIndex([tstore], [tfm.subsample_sa(4)], None, "none",
                            device=CPU)
     got = tdm.dream_map_sam(index, sub, opts, timers=timers)
     assert timers.totals.get("overflow fallback", 0) > 0
@@ -216,13 +224,17 @@ def test_unported_paths_raise(db, tandem, monkeypatch):
 _NO_JAX = """
 import sys
 sys.modules["jax"] = None
+sys.modules["dream_yara_tpu"] = None
 import numpy as np
 import torch
 from dream_yara_tpu_torch.pipeline import dis_mapper as dm
-from dream_yara_tpu_torch._shared import (FMIndex, InterleavedBloomFilter,
-                                          MapperOptions, ReadBatch, SeqStore,
-                                          revcomp)
-assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
+from dream_yara_tpu_torch.index.fmindex import FMIndex
+from dream_yara_tpu_torch.index.ibf import InterleavedBloomFilter
+from dream_yara_tpu_torch.io.readstore import ReadBatch
+from dream_yara_tpu_torch.io.seqstore import SeqStore
+from dream_yara_tpu_torch.utils.alphabet import revcomp
+from dream_yara_tpu_torch.utils.options import MapperOptions
+assert not any(m.split(".")[0] in ("jax", "dream_yara_tpu") for m in sys.modules
                if sys.modules[m] is not None)
 rng = np.random.default_rng(5)
 g = rng.integers(0, 4, 3000).astype(np.int8)
@@ -251,7 +263,8 @@ assert [(r[2], r[3], int(r[1]) & 0x2) for r in recs] == [
     ("d", "501", 2), ("d", "701", 2)], recs
 # a repeated segment on a rate-4 sampled SA with a bidirectional sidecar:
 # the read's exact seeds overflow, so sensitivity high re-seeds it
-from dream_yara_tpu_torch._shared import StageTimers, build_reverse_fused
+from dream_yara_tpu_torch.index.bifm import build_reverse_fused
+from dream_yara_tpu_torch.utils.timer import StageTimers
 from dream_yara_tpu_torch.pipeline.mapper import BinMapper
 BinMapper.REP_PAD = 16          # small groups keep the CPU run short
 seg = rng.integers(0, 4, 300).astype(np.int8)
@@ -267,7 +280,8 @@ sam = dm.dream_map_sam(index, ReadBatch.from_reads(["t"], [read]),
 recs = [l.split("\t") for l in sam.splitlines() if not l.startswith("@")]
 assert (int(recs[0][3]) - 51) % 300 == 0 and recs[0][5] == "100M", recs
 assert timers.totals["repetitive re-seed (device)"] > 0, timers.totals
-assert "dream_yara_tpu.ops.rank" not in sys.modules
+assert not any(m.split(".")[0] in ("jax", "dream_yara_tpu") for m in sys.modules
+               if sys.modules[m] is not None)
 print("NO_JAX_OK")
 """
 
