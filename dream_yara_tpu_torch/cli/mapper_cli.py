@@ -10,11 +10,20 @@ cards, or the one CPU. --coordinator, --num-processes and --process-id join
 a multi-process run over torch.distributed (parallel/multihost.py): the
 bins are sharded over the ranks, each rank maps on its visible devices, and
 rank 0 writes the SAM.
+
+--trace FILE traces the mapping: it runs it under torch.profiler (the CPU
+activity of every thread; on a card its kernels and copies too) with the
+program's tracing on (utils/timer.py: each stage a profiler range, nested,
+on its thread), and writes a Chrome trace to FILE (chrome://tracing or
+Perfetto). -v prints the stage report at the end; with tracing on it also
+holds the device times of the map steps and strata (CUDA events) and the
+counters of routing, chunks, spills and repetitive groups.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 import time
 
@@ -52,7 +61,15 @@ def main(argv=None):
                         "(atomic rename + manifest); re-running the same "
                         "command resumes after the last committed shard, "
                         "then assembles -o from the shards")
-    p.add_argument("-v", "--verbose", action="count", default=0)
+    p.add_argument("-v", "--verbose", action="count", default=0,
+                   help="print progress, and the stage report with the "
+                        "device times and counters of the program's "
+                        "tracing, which -v turns on")
+    p.add_argument("--trace", default=None, metavar="FILE",
+                   help="write a Chrome trace of the mapping to FILE: the "
+                        "program's stages as nested profiler ranges on "
+                        "their threads, and on a card the kernels each "
+                        "launched (torch.profiler)")
     p.add_argument("--mesh", action="store_true",
                    help="map on the (data, bin) mesh of all visible devices")
     p.add_argument("--coordinator", default=None,
@@ -62,13 +79,15 @@ def main(argv=None):
     a = p.parse_args(argv)
     if a.coordinator is not None and None in (a.num_processes, a.process_id):
         sys.exit("error: --coordinator needs --num-processes and --process-id")
+    if a.coordinator is not None and a.trace is not None:
+        sys.exit("error: --trace maps in one process; drop --coordinator")
 
     from ..io.fastq import FastqBatchReader
     from ..io.shards import drive_sharded_stream
     from ..pipeline.dis_mapper import DreamIndex, dream_map_stream
     from ..pipeline.writer import sam_header
     from ..utils.options import MapperOptions
-    from ..utils.timer import StageTimers
+    from ..utils.timer import StageTimers, chrome_trace
     from .common import cli_device, open_output
 
     device = cli_device()
@@ -83,7 +102,7 @@ def main(argv=None):
     cmdline = " ".join(argv if argv is not None else sys.argv[1:])
 
     t0 = time.time()
-    timers = StageTimers()
+    timers = StageTimers(spans=bool(a.verbose or a.trace))
     if a.coordinator is not None:
         _map_multihost(a, opts, device, timers, t0)
         return
@@ -107,26 +126,27 @@ def main(argv=None):
     reader = FastqBatchReader(a.reads, a.reads2, batch_size=a.reads_batch)
     stats: dict = {}
     t0 = time.time()
-    if a.output_shards:
-        text = drive_sharded_stream(
-            reader, a.output_shards,
-            "\n".join(sam_header(index.contigs, cmdline,
-                                 read_group=opts.read_group or None)) + "\n",
-            lambda bs: stream(bs, header=False), a.output_file)
-        if text is not None:
-            sys.stdout.buffer.write(text)
-    else:
-        out = open_output(a.output_file)
-        try:
-            for i, sam in enumerate(stream(reader, cmdline=cmdline)):
-                out.write_sam(sam)
-                if a.verbose:
-                    rate = stats.get("reads", 0) / (time.time() - t0)
-                    print(f"{label} batch {i} done ({rate:.0f} reads/s cum)",
-                          file=sys.stderr)
-        finally:
-            out.close()
-    dt = time.time() - t0
+    with chrome_trace(a.trace, device) if a.trace else contextlib.nullcontext():
+        if a.output_shards:
+            text = drive_sharded_stream(
+                reader, a.output_shards,
+                "\n".join(sam_header(index.contigs, cmdline,
+                                     read_group=opts.read_group or None)) + "\n",
+                lambda bs: stream(bs, header=False), a.output_file)
+            if text is not None:
+                sys.stdout.buffer.write(text)
+        else:
+            out = open_output(a.output_file)
+            try:
+                for i, sam in enumerate(stream(reader, cmdline=cmdline)):
+                    out.write_sam(sam)
+                    if a.verbose:
+                        rate = stats.get("reads", 0) / (time.time() - t0)
+                        print(f"{label} batch {i} done ({rate:.0f} reads/s cum)",
+                              file=sys.stderr)
+            finally:
+                out.close()
+        dt = time.time() - t0
     n_reads = stats.get("reads", 0)
     print(f"{label} {n_reads} reads in {dt:.1f}s "
           f"({n_reads / max(dt, 1e-9):.0f} reads/s) on {device}", file=sys.stderr)

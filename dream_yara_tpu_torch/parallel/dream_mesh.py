@@ -204,7 +204,7 @@ class MeshDreamMapper:
                           uniform_len_ok(batch.lengths, L, rate_ppm, max_err),
                           *self._caps())
         blob_d = self._upload_shards(blob.view(np.int32))
-        with timers.stage("mesh map (device)"):
+        with timers.stage("mesh map enqueue (host)"):
             fetch = self._run_pass(step, blob_d)
         return lambda: self._collect(batch, fetch, n, half_loc, r_cap, timers,
                                      blob_d, step)
@@ -243,7 +243,7 @@ class MeshDreamMapper:
             diag["drain_passes"] += 1
             words = self._upload_shards(
                 pack_route_words(leftover, self.B).view(np.int32))
-            with timers.stage("mesh map (device)"):
+            with timers.stage("mesh map enqueue (host)"):
                 fetch = self._run_pass(step, blob_d, words)
         if drains >= 2 and self.r_cap_arg is None:
             # persistent overflow: grow the default pool for later batches

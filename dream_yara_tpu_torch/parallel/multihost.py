@@ -265,7 +265,7 @@ class MultiHostDreamMapper:
         cap2v = max(8, int(float(os.environ.get("DY_CAP2V", "1.25")) * r_cap))
         blob32 = blob.view(np.int32)
         per = blob32.shape[0] // self.data_ax
-        with timers.stage("mesh map (device)"):
+        with timers.stage("mesh map enqueue (host)"):
             outs = []
             for d in range(self.data_ax):
                 dev = self.mesh[d, self.pid]

@@ -218,10 +218,21 @@ def dis_map_batch_async(index: DreamIndex, batch: ReadBatch,
                         timers: StageTimers | None = None):
     """Queue all per-bin device work for the batch; return a drain()
     closure producing the merged global Matches. A paired batch maps its
-    mates as independent reads; pairing happens when it is finished."""
+    mates as independent reads; pairing happens when it is finished.
+
+    Whether the batch is traced is read from `timers.spans` once, here: it
+    holds for every counter and device span of the batch, those its drain
+    adds included, so the device times and "device-timed reads" always
+    cover the same batches."""
     timers = timers or StageTimers()
+    traced = getattr(timers, "spans", False)
     with timers.stage("ibf classify"):
         routing = classify_reads(index, batch, opts, timers)
+    if traced:
+        timers.add("classified reads", batch.n_reads)
+        timers.add("routed read-bins", int(routing.sum()))
+        if index.device.type == "cuda":
+            timers.add("device-timed reads", batch.n_reads)
     drains = []
     for b in range(index.n_bins):
         ids = np.flatnonzero(routing[:, b])
@@ -230,7 +241,7 @@ def dis_map_batch_async(index: DreamIndex, batch: ReadBatch,
         with timers.stage("per-bin subset prep (host)"):
             sub = _sub_batch(batch, ids)
             bm = index.bin_mapper(b, opts, timers)
-        drains.append((b, ids, bm.map_batch_async(sub)))
+        drains.append((b, ids, bm.map_batch_async(sub, traced=traced)))
 
     def drain() -> Matches:
         parts: list[Matches] = []

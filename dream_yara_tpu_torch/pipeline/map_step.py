@@ -131,16 +131,23 @@ def single_bin_map_step_packed(fm: DeviceFM, blob: torch.Tensor, *, half: int,
                                verify_capacity: int | None = None,
                                compact_cap: int | None = None,
                                prefix_q: int = 0, uniform_len: bool = False,
-                               sample_rate: int = 1):
+                               sample_rate: int = 1, marks=None):
     """Packed-upload entry: `blob` is pack_blob_with_lengths output held as
     int32 on the device. Returns (bundle, seed_lo, seed_hi, overflow,
     m_start): every per-candidate output and the two scalars in ONE int32
-    tensor, laid out as the reference's (unpack with unbundle_out)."""
+    tensor, laid out as the reference's (unpack with unbundle_out).
+    `marks(phase)`, where given, is called as each phase's work is queued:
+    "map upload" once the blob (whose copy the caller queued) is unpacked,
+    "map seed search" and "map locate" in _map_step_core, and "map verify"
+    once the bundle that packs verify's output is queued, so the phases
+    cover the step (utils/timer.DeviceSpan)."""
     packed, nmask, lengths = unpack_blob(blob, half, L)
     reads = unpack_reads(packed, nmask, lengths, L)
+    if marks is not None:
+        marks("map upload")
     out = _map_step_core(fm, reads, lengths, rate_ppm, max_errors, capacity,
                          max_slen, verify_capacity, compact_cap, prefix_q,
-                         uniform_len, sample_rate)
+                         uniform_len, sample_rate, marks=marks)
     if _meta_packable(L, max_errors, half * 2):
         # (row, dist, end-begin, ok) bit-packed into one word next to begin
         delta = (out.end - out.begin).clamp(0, 255).long()
@@ -152,6 +159,8 @@ def single_bin_map_step_packed(fm: DeviceFM, blob: torch.Tensor, *, half: int,
         bundle = torch.cat([out.row, out.begin, out.end, out.dist,
                             out.ok.to(torch.int32), out.overflow_total[None],
                             out.n_spilled[None]])
+    if marks is not None:
+        marks("map verify")
     return bundle, out.seed_lo, out.seed_hi, out.overflow, out.m_start
 
 
@@ -177,7 +186,7 @@ def _uniform_seed_chars(reads, L, rate_ppm, max_errors, t_stop, msl_eff):
 def _map_step_core(fm: DeviceFM, reads, lengths, rate_ppm, max_errors, capacity,
                    max_slen, verify_capacity, compact_cap, prefix_q,
                    uniform_len=False, sample_rate: int = 1,
-                   hooks: FetchHooks | None = None) -> MapStepOut:
+                   hooks: FetchHooks | None = None, marks=None) -> MapStepOut:
     R2, L = reads.shape
     if hooks is None:
         hooks = FetchHooks()
@@ -198,6 +207,8 @@ def _map_step_core(fm: DeviceFM, reads, lengths, rate_ppm, max_errors, capacity,
                                   prefix_q=prefix_q, chars_fe=chars_fe,
                                   rank_row_fetch=hooks.rank_rows,
                                   pfx_fetch=hooks.pfx)
+    if marks is not None:
+        marks("map seed search")
     if sample_rate > 1:
         # sampled SA: hit rows, then the LF walk to marked rows on the fused
         # rows (the raw bwt/occ walk lost matches in the reference, map_step.py)
@@ -210,6 +221,8 @@ def _map_step_core(fm: DeviceFM, reads, lengths, rate_ppm, max_errors, capacity,
         pos, hmask, overflow = gather_hits(fm.sa, lo, hi, capacity,
                                            sa_row_fetch=hooks.sa_rows,
                                            n_sa_rows=hooks.n_sa_rows)
+    if marks is not None:
+        marks("map locate")
 
     ns = max_errors + 1
     A = (pos - m_start[:, None]).reshape(R2, ns * capacity)
@@ -427,7 +440,7 @@ def repetitive_map_step(fm: DeviceFM, reads: torch.Tensor,
                         max_errors: int, capacity: int, max_slen_rep: int,
                         verify_capacity: int = 8, budget: int = 1,
                         indels: bool = False, backend: str = "enum",
-                        sample_rate: int = 1):
+                        sample_rate: int = 1, marks=None):
     """Re-seed repetitive rows with fewer, longer approximate seeds.
 
     Rows whose exact seeds overflowed capacity get s' = ceil((E+1) /
@@ -439,7 +452,9 @@ def repetitive_map_step(fm: DeviceFM, reads: torch.Tensor,
     layout's SA interval yields up to `capacity` hits, located on the
     full or the sampled SA, then deduplicated per row and verified.
 
-    rep_rows: (K,) seq-row ids; rep_mask: (K,) bool.
+    rep_rows: (K,) seq-row ids; rep_mask: (K,) bool. `marks(phase)`, where
+    given, is called as each phase's work is queued: "repetitive seed
+    search", "repetitive locate", "repetitive verify".
     Returns (row, begin, end, dist, ok, n_spilled)."""
     K = rep_rows.shape[0]
     n_reads = lengths.shape[0]
@@ -467,6 +482,8 @@ def repetitive_map_step(fm: DeviceFM, reads: torch.Tensor,
         lo, hi, lvalid, w_start = seed_search_edits(
             fm.fused, fm.counts, fm.n, reads, rows_s, starts, slens,
             max_slen_rep, budget=budget, indels=indels)
+    if marks is not None:
+        marks("repetitive seed search")
     hi = torch.where(lvalid, hi, lo)
 
     # slot j of row k is ((seed * NL) + layout) * capacity + hit; only the
@@ -482,6 +499,8 @@ def repetitive_map_step(fm: DeviceFM, reads: torch.Tensor,
                                    fm.sa_rank_ck, fm.sa, sa_rows, sample_rate)
     else:
         pos = fm.sa[sa_rows.long()]
+    if marks is not None:
+        marks("repetitive locate")
     # anchor = window begin in the text; an indel layout shifts the
     # window's end by one, which the verifier's band absorbs
     anchors = pos - w_start[torch.div(lane, NL, rounding_mode="floor")]
@@ -490,4 +509,6 @@ def repetitive_map_step(fm: DeviceFM, reads: torch.Tensor,
         verify_capacity)
     dist, beg, end, ok = verify_candidates(fm, reads, lengths, vrow, vanch,
                                            keep, rate_ppm, max_errors)
+    if marks is not None:
+        marks("repetitive verify")
     return vrow, beg, end, dist, ok, n_spilled

@@ -25,7 +25,7 @@ from ..index.fmindex import FMIndex
 from ..io.readstore import ReadBatch
 from ..io.seqstore import SeqStore
 from ..utils.options import MapperOptions
-from ..utils.timer import StageTimers
+from ..utils.timer import StageTimers, device_span
 from .cigar import compute_cigars
 from .matches import Matches, Ranked, build_matches, dedup_matches, rank_matches
 from .pairs import rescue_candidates, select_pairs
@@ -108,10 +108,17 @@ class BinMapper:
         """All matches (bin-local global-text coords)."""
         return self.map_batch_async(batch, capacity)()
 
-    def map_batch_async(self, batch: ReadBatch, capacity: int = 8):
+    def map_batch_async(self, batch: ReadBatch, capacity: int = 8,
+                        traced: bool | None = None):
         """Queue the batch's device work now; return a drain() closure that
         waits, fetches and post-processes. The mates of a paired batch map
-        as independent reads."""
+        as independent reads.
+
+        `traced`: whether this batch is traced (counters, and on a card the
+        device spans of its map steps, strata and dense re-verify), decided
+        once at dispatch; by default `timers.spans` now."""
+        if traced is None:
+            traced = getattr(self.timers, "spans", False)
         opts = self.opts
         rate_ppm = rate_to_ppm(opts.error_rate)
         n = batch.n_reads
@@ -138,20 +145,26 @@ class BinMapper:
             lens_c = np.zeros(half, dtype=np.int32)
             lens_c[: len(ids)] = batch.lengths[ids]
             blob = pack_blob_with_lengths(batch.seqs[ids], lens_c, half, L)
-            with self.timers.stage("seed+search+verify (device)"):
+            with self.timers.stage("map step enqueue (host)"):
+                span = device_span(self.timers, "map step", self.device,
+                                   traced)
                 out = single_bin_map_step_packed(
                     self.dev, to_device(blob.view(np.int32), self.device),
-                    half=half, L=L, compact_cap=compact_cap, **step_kw)
+                    half=half, L=L, compact_cap=compact_cap, marks=span.mark,
+                    **step_kw)
+                span.stop()
                 fetch = _Fetch(out[0])
-            pending.append((out, fetch, ids, lens_c))
+            pending.append((out, fetch, ids, lens_c, span))
+        if traced:
+            self.timers.add("map chunks", len(pending))
 
         def drain():
             return self._drain_pending(pending, batch, n, half, chunk_rows, L,
-                                       max_err, rate_ppm, step_kw)
+                                       max_err, rate_ppm, step_kw, traced)
         return drain
 
     def _drain_pending(self, pending, batch, n, half, chunk_rows, L,
-                       max_err, rate_ppm, step_kw) -> Matches:
+                       max_err, rate_ppm, step_kw, traced) -> Matches:
         def full_reads(ids):
             reads_c = np.full((chunk_rows, L), 4, dtype=np.int8)
             reads_c[: len(ids)] = batch.seqs[ids]
@@ -159,10 +172,11 @@ class BinMapper:
             return reads_c
 
         parts: list[Matches] = []
-        for (out, fetch, ids, lens_c) in pending:
+        for (out, fetch, ids, lens_c, span) in pending:
             _bundle_dev, s_lo, s_hi, ovf, m_st = out
             with self.timers.stage("device wait+fetch"):
                 bundle = fetch.result()
+            span.settle()
             with self.timers.stage("collect matches (host)"):
                 out = unbundle_out(bundle, s_lo, s_hi, ovf, m_st,
                                    L, max_err, chunk_rows)
@@ -170,9 +184,12 @@ class BinMapper:
                 # compaction spilled: redo the chunk verifying every slot,
                 # in bounded sub-chunks; these matches replace the compacted
                 # set, and the seed arrays of the compacted run stay valid
+                if traced:
+                    self.timers.add("spilled chunks", 1)
                 with self.timers.stage("dense re-verify (device)"):
                     parts.extend(self._dense_reverify(batch, ids, n, L,
-                                                      max_err, step_kw))
+                                                      max_err, step_kw,
+                                                      traced))
             else:
                 with self.timers.stage("collect matches (host)"):
                     m = build_matches(out.row, out.begin, out.end, out.dist,
@@ -196,16 +213,17 @@ class BinMapper:
                     with self.timers.stage("repetitive re-seed (device)"):
                         parts.append(self._repetitive_pass(
                             out, reads_c, lens_c, ids, half, n, max_err,
-                            rate_ppm))
+                            rate_ppm, traced))
         # dedup happens after the cross-contig filter (map_single_bin)
         return Matches.concat(parts)
 
     DENSE_HALF = 8192  # dense re-verify sub-chunk reads: bounds device memory
 
-    def _dense_reverify(self, batch, ids, n, L, max_err, step_kw):
+    def _dense_reverify(self, batch, ids, n, L, max_err, step_kw, traced):
         """Re-map the chunk's reads with every slot verified (no
         compaction), in fixed-size sub-chunks; seeding, per-row dedup and
-        verification are row-local, so the output equals a whole-chunk pass."""
+        verification are row-local, so the output equals a whole-chunk pass.
+        Traced, the sub-chunks' device time adds up under "dense re-verify"."""
         sub_half = self.DENSE_HALF
         parts = []
         for s0 in range(0, len(ids), sub_half):
@@ -213,11 +231,15 @@ class BinMapper:
             lens_s = np.zeros(sub_half, dtype=np.int32)
             lens_s[: len(sids)] = batch.lengths[sids]
             blob = pack_blob_with_lengths(batch.seqs[sids], lens_s, sub_half, L)
+            span = device_span(self.timers, "dense re-verify", self.device,
+                               traced)
             bundle, s_lo, s_hi, ovf, m_st = single_bin_map_step_packed(
                 self.dev, to_device(blob.view(np.int32), self.device),
                 half=sub_half, L=L, verify_capacity=None, **step_kw)
+            span.stop()
             o = unbundle_out(_Fetch(bundle).result(), s_lo, s_hi, ovf, m_st,
                              L, max_err, 2 * sub_half)
+            span.settle()
             m = build_matches(o.row, o.begin, o.end, o.dist, o.ok,
                               n_reads=sub_half)
             parts.append(self._remap_chunk(m, sids, sub_half, n))
@@ -252,12 +274,16 @@ class BinMapper:
         return "bidir" if (slen >= t_max).all() else "enum"
 
     def _repetitive_pass(self, out: MapStepOut, reads_c, lens_c, ids, half, n,
-                         max_err, rate_ppm) -> Matches:
+                         max_err, rate_ppm, traced) -> Matches:
         """Device re-seed of the rows whose exact seeds overflowed. Stratum
         1: ceil((E+1)/2) long seeds with <= 1 edit (substitutions, and one
         indel with opts.indels). Stratum 2: the rows still without a match
         get ceil((E+1)/3) seeds with <= 2 substitutions. Each group of
-        REP_PAD rows is timed under "repetitive stratum k (backend)"."""
+        REP_PAD rows is timed under "repetitive stratum k (backend)";
+        traced, it is also the device span "repetitive stratum k" (its
+        first phase, "repetitive upload", the copy of the group's rows and
+        mask; then repetitive_map_step's), and the groups, their slots and
+        their real rows are counted."""
         ns = max_err + 1
         R2 = reads_c.shape[0]
         rep_rows = np.flatnonzero(
@@ -280,14 +306,27 @@ class BinMapper:
                                        np.zeros(padn, bool)])
                 rb = np.concatenate([rb, np.zeros(padn, np.int32)])
                 with self.timers.stage(f"repetitive stratum {stratum} ({backend})"):
+                    span = device_span(self.timers,
+                                       f"repetitive stratum {stratum}",
+                                       self.device, traced)
+                    rb_d = to_device(rb, self.device)
+                    mask_d = to_device(mask, self.device)
+                    if span.mark is not None:
+                        span.mark("repetitive upload")
                     res = repetitive_map_step(
-                        self.dev, reads_d, lens_d, to_device(rb, self.device),
-                        to_device(mask, self.device), rate_ppm=rate_ppm,
+                        self.dev, reads_d, lens_d, rb_d, mask_d,
+                        rate_ppm=rate_ppm,
                         max_errors=max_err, capacity=4, max_slen_rep=t_max,
                         budget=budget, indels=indels, backend=backend,
-                        sample_rate=self.sample_rate)
+                        sample_rate=self.sample_rate, marks=span.mark)
+                    span.stop()
                     row, beg, end, dist, ok = _Fetch(torch.stack(
                         [*res[:4], res[4].to(torch.int32)])).result()
+                span.settle()
+                if traced:
+                    self.timers.add("repetitive groups", 1)
+                    self.timers.add("repetitive group slots", self.REP_PAD)
+                    self.timers.add("repetitive rows", self.REP_PAD - padn)
                 ok = ok.astype(bool)
                 matched = np.union1d(matched, row[ok])
                 m = build_matches(row, beg, end, dist, ok, n_reads=half)

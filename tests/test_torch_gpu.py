@@ -280,3 +280,86 @@ def test_sharded_bin_on_card_equals_bin_mapper(cuda_device, K):
     want_v = verify.banded_verify(text, anchors, reads, rows, lengths, 3)
     for g, w, name in zip(got, want_v, ["dist", "begin", "end"]):
         assert torch.equal(g, w), name
+
+
+def test_device_spans_on_card(cuda_device, monkeypatch):
+    """With tracing on, a batch on the card times its map steps, dense
+    re-verify and repetitive groups with CUDA events: every device time is
+    positive, each group's device span is at most its host stage, the
+    phases add up to their spans within 1 %, and the SAM is the same with
+    tracing off. Chunks of 256 rows and groups of 64 give a bin several of
+    each; the tandem bin's reads overflow and spill."""
+    from dream_yara_tpu_torch.index.fmindex import FMIndex
+    from dream_yara_tpu_torch.index.ibf import InterleavedBloomFilter
+    from dream_yara_tpu_torch.io.readstore import ReadBatch
+    from dream_yara_tpu_torch.io.seqstore import SeqStore
+    from dream_yara_tpu_torch.pipeline import mapper as tmapper
+    from dream_yara_tpu_torch.pipeline.dis_mapper import DreamIndex, dream_map_sam
+    from dream_yara_tpu_torch.utils.options import MapperOptions
+    from dream_yara_tpu_torch.utils.simulate import repeat_rich_genome, sample_reads
+    from dream_yara_tpu_torch.utils.timer import DEVICE_TIME, StageTimers
+
+    class Logged(StageTimers):
+        def __init__(self, spans):
+            super().__init__(spans)
+            self.log = []
+
+        def add(self, name, value):
+            super().add(name, value)
+            self.log.append((name, value))
+
+    monkeypatch.setattr(tmapper, "CHUNK_SIZES", (256,))
+    monkeypatch.setattr(tmapper.BinMapper, "DENSE_HALF", 128)
+    monkeypatch.setattr(tmapper.BinMapper, "REP_PAD", 64)
+    rng = np.random.default_rng(11)
+    unit = rng.integers(0, 4, 50).astype(np.int8)
+    tandem = np.concatenate([np.tile(unit, 40),
+                             rng.integers(0, 4, 2000).astype(np.int8)])
+    g, ann = repeat_rich_genome(rng, 200_000, alu_count=150, tandem_loci=4,
+                                n_runs=2)
+    texts = [tandem, g[:100_000], g[100_000:]]
+    stores = [SeqStore.from_seqs([f"c{b}"], [t]) for b, t in enumerate(texts)]
+    fms = [FMIndex.build(st.text) for st in stores]
+    ibf = InterleavedBloomFilter.create(3, size_bits=1 << 22, n_hashes=3, k=19)
+    for b, st in enumerate(stores):
+        ibf.add_kmers(st.text, b)
+    reads = [np.tile(unit, 3)[i % 50 : i % 50 + 100].copy() for i in range(200)]
+    for r in reads[100:]:
+        r[[5, 20, 55, 70]] = (r[[5, 20, 55, 70]] + 1) % 4   # both strata
+    rep, _ = sample_reads(rng, g, 400, regions=ann["alu"] + ann["tandem"])
+    anywhere, _ = sample_reads(rng, g, 400)
+    reads += [*rep, *anywhere]
+    batch = ReadBatch.from_reads([f"r{i}" for i in range(len(reads))], reads)
+    index = DreamIndex(stores, fms, ibf, "bloom", device=cuda_device)
+    opts = MapperOptions(error_rate=0.03, sensitivity="high")
+    dream_map_sam(index, batch, opts)                   # builds the kernels
+    on = Logged(spans=True)
+    sam_on = dream_map_sam(index, batch, opts, timers=on)
+    off = StageTimers()
+    assert dream_map_sam(index, batch, opts, timers=off) == sam_on
+    assert not any(k.endswith(DEVICE_TIME) for k in off.totals)
+
+    t = on.totals
+    assert t["device-timed reads"] == batch.n_reads
+    assert 0 < t["spilled chunks"] < t["map chunks"]
+    spans = ["map step", "map upload", "map seed search", "map locate",
+             "map verify", "dense re-verify", "repetitive stratum 1",
+             "repetitive stratum 2", "repetitive upload",
+             "repetitive seed search", "repetitive locate", "repetitive verify"]
+    for s in spans:
+        assert t[s + DEVICE_TIME] > 0, s
+    assert all(v > 0 for k, v in on.log if k.endswith(DEVICE_TIME))
+    for k in (1, 2):
+        host = [v for n, v in on.log if n == f"repetitive stratum {k} (enum)"]
+        dev = [v for n, v in on.log if n == f"repetitive stratum {k}{DEVICE_TIME}"]
+        assert len(host) == len(dev) > 0
+        assert all(d <= h for d, h in zip(dev, host)), (k, dev, host)
+    for total, phases in (
+            (t["map step" + DEVICE_TIME], ["map upload", "map seed search",
+                                           "map locate", "map verify"]),
+            (t["repetitive stratum 1" + DEVICE_TIME]
+             + t["repetitive stratum 2" + DEVICE_TIME],
+             ["repetitive upload", "repetitive seed search",
+              "repetitive locate", "repetitive verify"])):
+        assert sum(t[p + DEVICE_TIME] for p in phases) == pytest.approx(
+            total, rel=0.01)
