@@ -16,7 +16,7 @@ imported. Phases:
   1. card     — the card's name and power limit, its clocks and the host's
                 CPU (nvidia-smi, /proc/cpuinfo); the card's clocks are
                 sampled again during each timed verify phase and stream;
-  2. build    — nvcc builds both kernels from csrc/ and g++ the port's six
+  2. build    — nvcc builds the three kernels from csrc/ and g++ the port's six
                 native host libraries from native/, all at once (ptxas
                 lines; fails if a native library does not build);
   3. gather   — the row-gather kernel against its plain edition, exact
@@ -52,7 +52,10 @@ imported. Phases:
                 (tools/bench_bidir_ab.py's workload) at the default options:
                 the sampled locate equal to the full SA, one repetitive
                 group per backend and budget identical on the card and on
-                the CPU, 4 x 25,000 reads streamed (>= 99 % mapped, both
+                the CPU, the approximate seed-search kernel against its
+                plain edition at the chr21 cells' group shapes (exact, both
+                timed in turns, the rank rows it fetched against the
+                lockstep's), 4 x 25,000 reads streamed (>= 99 % mapped, both
                 backends' groups run), SAM identical on the sampled and the
                 full SA and between card and CPU, a profile of one group
                 per backend;
@@ -168,22 +171,27 @@ def in_turns(plain, kernel, plain_reps: int, kernel_reps: int):
 
 def launch_counts(*keys) -> dict:
     """Launches since the last reset of the given kernel entries (all by
-    default): the single-bin and the stacked verify entry, the row gather."""
-    from dream_yara_tpu_torch.ops import banded_verify_cuda, row_gather_cuda
+    default): the single-bin and the stacked verify entry, the row gather,
+    the approximate seed search."""
+    from dream_yara_tpu_torch.ops import (approx_search_cuda, banded_verify_cuda,
+                                          row_gather_cuda)
 
     v = banded_verify_cuda.kernel
     counts = {"banded_verify": v.launches - v.stacked_launches,
               "banded_verify_stacked": v.stacked_launches,
-              "row_gather": row_gather_cuda.kernel.launches}
+              "row_gather": row_gather_cuda.kernel.launches,
+              "approx_search": approx_search_cuda.kernel.launches}
     return {k: counts[k] for k in (keys or counts)}
 
 
 def reset_launch_counts() -> None:
-    from dream_yara_tpu_torch.ops import banded_verify_cuda, row_gather_cuda
+    from dream_yara_tpu_torch.ops import (approx_search_cuda, banded_verify_cuda,
+                                          row_gather_cuda)
 
     banded_verify_cuda.kernel.launches = 0
     banded_verify_cuda.kernel.stacked_launches = 0
     row_gather_cuda.kernel.launches = 0
+    approx_search_cuda.kernel.launches = 0
 
 
 def sub_batch(batch, ids, paired=False):
@@ -197,26 +205,29 @@ def sub_batch(batch, ids, paired=False):
 
 
 def phase_build() -> None:
-    """Both kernel libraries (one nvcc each) and the port's native host
+    """The kernel libraries (one nvcc each) and the port's native host
     libraries (one g++ each), all started together. A native library that
     does not build fails the run: the streams are timed on the native host
     path."""
     from dream_yara_tpu_torch.native import build as native
+    from dream_yara_tpu_torch.ops.approx_search_cuda import kernel as approx_k
     from dream_yara_tpu_torch.ops.banded_verify_cuda import kernel as verify_k
     from dream_yara_tpu_torch.ops.row_gather_cuda import kernel as gather_k
 
     t0 = time.perf_counter()
-    jobs = [verify_k.build, gather_k.build] + [
+    kernels = (verify_k, gather_k, approx_k)
+    jobs = [k.build for k in kernels] + [
         (lambda name=name: native.build(name)) for name in native.LIBS]
     with ThreadPoolExecutor(max_workers=len(jobs)) as ex:
         paths = list(ex.map(lambda job: job(), jobs))
-    missing = [name for name, p in zip(native.LIBS, paths[2:]) if p is None]
+    missing = [name for name, p in zip(native.LIBS, paths[len(kernels):])
+               if p is None]
     if missing:
         raise RuntimeError(f"native host libraries did not build: {missing}")
     log(f"[build] {', '.join(p.name for p in paths)} in "
         f"{time.perf_counter() - t0:.1f} s (native host libraries: "
         f"{', '.join(native.LIBS)}, from dream_yara_tpu_torch/native/)")
-    for k in (verify_k, gather_k):
+    for k in kernels:
         for line in k.build_log.splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 log(f"[build] {k.source.name}: {line.strip()}")
@@ -511,7 +522,7 @@ def phase_config1(store, fm, batches, card):
                                      stats=stats))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    launches = launch_counts("banded_verify", "row_gather")
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     n_records = sum(sum(1 for line in s.split(b"\n") if line and line[:1] != b"@")
                     for s in sams)
@@ -524,7 +535,7 @@ def phase_config1(store, fm, batches, card):
     log(f"[config-1] kernel launches in the stream: {launches}")
     if n_records < n_total:
         raise AssertionError(f"{n_records} SAM records for {n_total} reads")
-    if min(launches.values()) == 0:
+    if min(launches["banded_verify"], launches["row_gather"]) == 0:
         raise AssertionError(f"the config-1 stream skipped a kernel: {launches}")
     if "overflow fallback" in timers.totals:
         raise AssertionError("a seed overflowed its capacity")
@@ -828,7 +839,7 @@ def phase_config2(card):
                              if line and line[:1] != b"@")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    launches = launch_counts("banded_verify", "row_gather")
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     log(f"[config-2] {n_total} reads ({n_total // 2} pairs) in {wall:.3f} s = "
         f"{n_total / wall:.1f} reads/s ({card}); SAM records {n_records}; "
@@ -840,7 +851,7 @@ def phase_config2(card):
     log(f"[config-2] kernel launches in the stream: {launches}")
     if n_records < n_total:
         raise AssertionError(f"{n_records} SAM records for {n_total} reads")
-    if min(launches.values()) == 0:
+    if min(launches["banded_verify"], launches["row_gather"]) == 0:
         raise AssertionError(f"the config-2 stream skipped a kernel: {launches}")
     if "overflow fallback" in timers.totals:
         raise AssertionError("a seed overflowed its capacity")
@@ -888,7 +899,8 @@ def build_rep_rich():
     (the full SA kept for the checks, and the rate-8 sampled index the
     bench maps with), the reverse fused rows, and 100 bp reads with up to
     2 substitutions from default_rng(7), every other one from a repeat copy.
-    Returns (store, fm_full, fm8, rfused, batches, truth)."""
+    Returns (store, fm_full, fm8, rfused, batches, truth, regions), the
+    last the repeat copies' and tandem arrays' intervals."""
     from dream_yara_tpu_torch.index.bifm import build_reverse_fused
     from dream_yara_tpu_torch.index.fmindex import FMIndex
     from dream_yara_tpu_torch.io.readstore import ReadBatch
@@ -919,7 +931,144 @@ def build_rep_rich():
         f"(q={fm_full.prefix_q}, sample rate {fm8.sample_rate}: "
         f"{len(fm8.sa)} samples) and reverse rows in {t2 - t1:.1f} s; "
         f"{n_reads} reads in {time.perf_counter() - t2:.1f} s (host)")
-    return store, fm_full, fm8, rfused, batches, truth
+    return store, fm_full, fm8, rfused, batches, truth, ann["alu"] + ann["tandem"]
+
+
+# the chr21 cells' repetitive groups (port_bench/configs/chr21-8bins.json:
+# REP_PAD rows, error rate 0.03): (cell, stratum, read length, max errors,
+# budget, indels, window)
+APPROX_SHAPES = (("pe150", 1, 150, 4, 1, True, 32),
+                 ("se100", 1, 100, 3, 1, True, 32),
+                 ("pe150", 2, 150, 4, 2, False, 16),
+                 ("se100", 2, 100, 3, 2, False, 16))
+
+
+def group_seeds(lens: np.ndarray, rate_ppm: int, max_err: int, budget: int):
+    """repetitive_map_step's seeds of a group of rows 0..K-1 with lengths
+    `lens`: ceil((E+1)/(budget+1)) windows a row, (rows, starts, slens)."""
+    from dream_yara_tpu_torch.pipeline.seeding import errors_for
+
+    ns2_max = (max_err + budget + 1) // (budget + 1)
+    e = errors_for(lens.astype(np.int64), rate_ppm)
+    ns2 = np.repeat((e + budget + 1) // (budget + 1), ns2_max)
+    sidx = np.tile(np.arange(ns2_max), len(lens))
+    slen = np.where(ns2 > 0, np.repeat(lens, ns2_max) // np.maximum(ns2, 1), 0)
+    rows = np.repeat(np.arange(len(lens)), ns2_max)
+    return (rows.astype(np.int32), (sidx * slen).astype(np.int32),
+            np.where(sidx < ns2, slen, 0).astype(np.int32))
+
+
+def plain_with_rows(dfm, args, m: int, budget: int, indels: bool):
+    """The plain edition's outputs, and the distinct fused rows the kernel
+    reads for the same seeds: the rows of every lane the lockstep updates
+    at some trip (active, its interval not empty). Before its branch step
+    a lane holds the exact lane's interval, so these are the rows of the
+    kernel's fetches, each counted once."""
+    import torch
+
+    from dream_yara_tpu_torch.ops import approx_search as tas
+    from dream_yara_tpu_torch.ops.rank import BLOCK
+
+    reads, rows, starts, slens = args
+    kind = torch.from_numpy(tas._layout_tables(m, budget, indels)[0]).to(
+        rows.device)[None, :]
+    lane_len = tas._lane_len(slens.clamp(max=m)[:, None], kind).reshape(-1)
+    seen = torch.zeros(dfm.fused.shape[0], dtype=torch.bool, device=rows.device)
+    trip = [0]
+    rank_fused = tas.rank_fused
+
+    def recording(fused, c, i):
+        Q = i.shape[0] // 2
+        live = (trip[0] < lane_len) & (i[:Q] < i[Q:])
+        seen[i[:Q][live] // BLOCK] = True
+        seen[i[Q:][live] // BLOCK] = True
+        trip[0] += 1
+        return rank_fused(fused, c, i)
+
+    tas.rank_fused = recording
+    try:
+        out = tas._seed_search_edits_plain(dfm.fused, dfm.counts, dfm.n, *args,
+                                           m, budget=budget, indels=indels)
+    finally:
+        tas.rank_fused = rank_fused
+    return out, int(seen.sum())
+
+
+def phase_approx_search(dfm, store, regions, card):
+    """The approximate seed-search kernel against its plain edition (which
+    runs the lockstep on the card through the row gather) at the chr21
+    cells' group shapes: REP_PAD reads from repeat copies with up to 2
+    substitutions, every row real (the cells' groups run 60-78 % full).
+    Exact equality; both timed in turns; the rank rows the kernel fetched
+    against the lockstep's. Its bound: each byte read once and written
+    once at 3.35 TB/s (the distinct fused rows its lanes read, the seeds
+    and their windows, the outputs); the log line adds the rows it fetched
+    x 96 B at that rate, which the kernel beats where the rows sit in the
+    L2. Returns the kernel-table entries."""
+    import torch
+
+    from dream_yara_tpu_torch.ops import approx_search as tas
+    from dream_yara_tpu_torch.ops import approx_search_cuda, row_gather_cuda
+    from dream_yara_tpu_torch.pipeline.mapper import BinMapper
+    from dream_yara_tpu_torch.pipeline.seeding import rate_to_ppm
+    from dream_yara_tpu_torch.utils.simulate import sample_reads
+
+    dev = torch.device("cuda")
+    rate_ppm = rate_to_ppm(ERROR_RATE)
+    K = BinMapper.REP_PAD
+    entries = []
+    for cell, stratum, L, max_err, budget, indels, m in APPROX_SHAPES:
+        reads, _ = sample_reads(np.random.default_rng(L), store.text[:-1], 2 * K,
+                                read_len=L, n_sub=2, regions=regions)
+        reads = np.stack(reads[::2]).astype(np.int8)      # the repeat copies
+        rows, starts, slens = group_seeds(np.full(K, L), rate_ppm, max_err,
+                                          budget)
+        args = [torch.from_numpy(a).to(dev) for a in (reads, rows, starts, slens)]
+        fetched = torch.zeros(1, dtype=torch.int64, device=dev)
+        kernel = lambda rr=None: tas.seed_search_edits(
+            dfm.fused, dfm.counts, dfm.n, *args, m, budget=budget,
+            indels=indels, rank_rows=rr)
+        plain = lambda: tas._seed_search_edits_plain(
+            dfm.fused, dfm.counts, dfm.n, *args, m, budget=budget, indels=indels)
+        before = (approx_search_cuda.kernel.launches,
+                  row_gather_cuda.kernel.launches)
+        got = kernel(fetched)
+        torch.cuda.synchronize()
+        launches = (approx_search_cuda.kernel.launches - before[0],
+                    row_gather_cuda.kernel.launches - before[1])
+        want, distinct = plain_with_rows(dfm, args, m, budget, indels)
+        diff = [nm for nm, g, w in zip(["lo", "hi", "valid", "w_start"], got, want)
+                if not torch.equal(g, w)]
+        if diff or launches != (1, 0):
+            raise AssertionError(f"approx search kernel at {cell} stratum "
+                                 f"{stratum}: differs in {diff}, launches "
+                                 f"(kernel, row gather) {launches}")
+        S, NL = got[0].shape
+        rows_k = int(fetched)
+        lockstep = tas.lockstep_rank_rows(S, m, budget, indels)
+        del got, want
+        k1, k2, p1, p2 = in_turns(plain, kernel, 3, 20)
+        nbytes = distinct * 96 + S * (12 + m) + S * NL * 9 + S * 4
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        rows_ms = rows_k * 96 / HBM_BYTES_PER_S * 1e3
+        log(f"[approx] {cell} stratum {stratum} group: S {S} seeds x NL {NL} "
+            f"layouts (m {m}, budget {budget}, indels {indels}), {L} bp reads "
+            f"from repeat copies: exact, 1 launch, 0 row gathers; kernel "
+            f"{k1} / {k2} ms, plain {p1} / {p2} ms ({p1 / k1:.1f}x); rank rows "
+            f"{rows_k} of the lockstep's {lockstep} "
+            f"({100 * rows_k / lockstep:.2f} %), {distinct} distinct; bound "
+            f"{bound:.5f} ms ({nbytes} "
+            f"bytes), kernel at {100 * bound / k1:.2f} % of it; rows fetched x "
+            f"96 B at 3.35 TB/s {rows_ms:.4f} ms ({card})")
+        entries.append({"name": "approx_search", "route": "cuda",
+                        "source": "dream_yara_tpu_torch/csrc/approx_search.cu",
+                        "replaces": None,
+                        "shape": f"{cell} stratum {stratum}, S {S} x NL {NL}",
+                        "ms": k1, "plain_ms": p1, "bound_ms": bound,
+                        "bound_by": "bytes", "rank_rows": rows_k})
+        del args
+    torch.cuda.empty_cache()
+    return entries
 
 
 def planted_share(sams, truth) -> float:
@@ -942,7 +1091,8 @@ def planted_share(sams, truth) -> float:
 
 
 def phase_rep_rich(card):
-    """The repeat-rich path on the card; returns the stream's launches."""
+    """The repeat-rich path on the card; returns the stream's launches and
+    the approximate seed-search kernel's table entries."""
     import torch
 
     from dream_yara_tpu_torch.utils.options import MapperOptions
@@ -964,7 +1114,7 @@ def phase_rep_rich(card):
         f"after a {RR_BATCH}-read warm-up (the bench streams 200,000 reads x 5 "
         f"passes); the product-default mode only (the bench runs 4: enum and "
         f"bidir, indels on and off)")
-    store, fm_full, fm8, rfused, batches, truth = build_rep_rich()
+    store, fm_full, fm8, rfused, batches, truth, regions = build_rep_rich()
     dev, cpu = torch.device("cuda"), torch.device("cpu")
     dev8 = DeviceFM.from_host(fm8, store.text, dev, rfused=rfused)
     n = fm8.n
@@ -1052,10 +1202,11 @@ def phase_rep_rich(card):
             f"{int(on_card[5])}; card {t_card:.3f} s, CPU {t_cpu:.1f} s (host "
             f"clock); peak device memory {peak} bytes ({peak / 2**20:.1f} MiB) "
             f"({card})")
-    for key in (("enum", 1), ("bidir", 2)):
+    for key in (("enum", 1), ("enum", 2), ("bidir", 2)):
         profile_step(f"rep-rich repetitive group ({key[0]}, budget {key[1]})",
                      lambda: repetitive_map_step(*group_in["card"], **ways[key]),
                      card)
+    approx_entries = phase_approx_search(dev8, store, regions, card)
     dev_full = DeviceFM.from_host(fm_full, store.text, dev)
     step_full = lambda: single_bin_map_step_packed(dev_full, blob, **step_kw)
     log(f"[rep-rich] map-step chunk ({nb} reads, {chunk_rows} rows): "
@@ -1085,7 +1236,7 @@ def phase_rep_rich(card):
                                      stats=stats))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    launches = launch_counts("banded_verify", "row_gather")
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     groups = {k: v for k, v in timers.counts.items()
               if k.startswith("repetitive stratum")}
@@ -1107,8 +1258,13 @@ def phase_rep_rich(card):
         raise AssertionError("the repetitive re-seed pass did not run")
     if min(n_groups.values()) == 0:
         raise AssertionError(f"a seed backend ran no group: {n_groups}")
-    if min(launches.values()) == 0:
+    if min(launches[k] for k in ("banded_verify", "row_gather",
+                                 "approx_search")) == 0:
         raise AssertionError(f"the rep-rich stream skipped a kernel: {launches}")
+    if launches["approx_search"] != n_groups["enum"]:
+        raise AssertionError(f"{n_groups['enum']} enum groups launched the "
+                             f"approximate search {launches['approx_search']} "
+                             f"times")
 
     # 4. SAM: sampled against full SA, and card against CPU
     sub = sub_batch(batches[1], np.arange(RR_SAM_READS))
@@ -1137,7 +1293,7 @@ def phase_rep_rich(card):
     log(f"[rep-rich] {RR_CPU_READS} repeat-region reads: SAM identical on the "
         f"card and on the CPU ({len(card_sam)} bytes; groups {rep_groups}; CPU "
         f"run {time.perf_counter() - t0:.1f} s)")
-    return launches
+    return launches, approx_entries
 
 
 def phase_stacked_verify(card):
@@ -1567,12 +1723,8 @@ sys.argv = ["dream-yara-tpu-torch-mapper", *sys.argv[1:]]
 try:
     runpy.run_module("dream_yara_tpu_torch.cli.mapper_cli", run_name="__main__")
 finally:
-    from dream_yara_tpu_torch.ops import banded_verify_cuda, row_gather_cuda
-    v = banded_verify_cuda.kernel
-    print("LAUNCHES " + json.dumps({
-        "banded_verify": v.launches - v.stacked_launches,
-        "banded_verify_stacked": v.stacked_launches,
-        "row_gather": row_gather_cuda.kernel.launches}), file=sys.stderr)
+    from chip_smoke import launch_counts
+    print("LAUNCHES " + json.dumps(launch_counts()), file=sys.stderr)
 """
 
 
@@ -1767,7 +1919,7 @@ def main() -> int:
     del full, batches
 
     by_path["config-2"] = phase_config2(card)
-    by_path["rep-rich"] = phase_rep_rich(card)
+    by_path["rep-rich"], approx_entries = phase_rep_rich(card)
     by_path["config-5"], flat_ms, nd_launches = phase_config5(card)
     for nd, c in nd_launches.items():
         by_path[f"mesh-nd{nd}"] = c
@@ -1781,13 +1933,15 @@ def main() -> int:
     for e in gather_entries:
         path = "rep-rich" if e["shape"].startswith("rep-rich") else "config-2"
         e["launches"] = by_path[path]["row_gather"]
-    for e in (verify_entry, stacked_entry, *gather_entries):
+    for e in approx_entries:
+        e["launches"] = by_path["rep-rich"]["approx_search"]
+    for e in (verify_entry, stacked_entry, *gather_entries, *approx_entries):
         key = e["name"]
         e["launches_by_path"] = {p: c[key] for p, c in by_path.items() if key in c}
     stacked_entry["flat_step_ms"] = flat_ms
     log(f"[done] smoke run {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [verify_entry, stacked_entry, *gather_entries]}),
-          flush=True)
+    print(json.dumps({"kernels": [verify_entry, stacked_entry, *gather_entries,
+                                  *approx_entries]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -440,7 +440,7 @@ def repetitive_map_step(fm: DeviceFM, reads: torch.Tensor,
                         max_errors: int, capacity: int, max_slen_rep: int,
                         verify_capacity: int = 8, budget: int = 1,
                         indels: bool = False, backend: str = "enum",
-                        sample_rate: int = 1, marks=None):
+                        sample_rate: int = 1, marks=None, rank_rows=None):
     """Re-seed repetitive rows with fewer, longer approximate seeds.
 
     Rows whose exact seeds overflowed capacity get s' = ceil((E+1) /
@@ -454,7 +454,9 @@ def repetitive_map_step(fm: DeviceFM, reads: torch.Tensor,
 
     rep_rows: (K,) seq-row ids; rep_mask: (K,) bool. `marks(phase)`, where
     given, is called as each phase's work is queued: "repetitive seed
-    search", "repetitive locate", "repetitive verify".
+    search", "repetitive locate", "repetitive verify". `rank_rows`, where
+    given, a one-element int64 tensor on the device, gets the rank rows
+    the `enum` search fetched added to it.
     Returns (row, begin, end, dist, ok, n_spilled)."""
     K = rep_rows.shape[0]
     n_reads = lengths.shape[0]
@@ -481,7 +483,7 @@ def repetitive_map_step(fm: DeviceFM, reads: torch.Tensor,
     else:
         lo, hi, lvalid, w_start = seed_search_edits(
             fm.fused, fm.counts, fm.n, reads, rows_s, starts, slens,
-            max_slen_rep, budget=budget, indels=indels)
+            max_slen_rep, budget=budget, indels=indels, rank_rows=rank_rows)
     if marks is not None:
         marks("repetitive seed search")
     hi = torch.where(lvalid, hi, lo)

@@ -30,6 +30,7 @@ from .cigar import compute_cigars
 from .matches import Matches, Ranked, build_matches, dedup_matches, rank_matches
 from .pairs import rescue_candidates, select_pairs
 from .writer import GlobalContigs, sam_header, write_pe_records, write_se_records
+from ..ops.approx_search import lockstep_rank_rows
 from ..ops.device_index import DeviceFM, to_device
 from ..ops.readpack import pack_blob_with_lengths
 from .map_step import (MapStepOut, max_rep_seed_len_static,
@@ -283,7 +284,9 @@ class BinMapper:
         traced, it is also the device span "repetitive stratum k" (its
         first phase, "repetitive upload", the copy of the group's rows and
         mask; then repetitive_map_step's), and the groups, their slots and
-        their real rows are counted."""
+        their real rows are counted; an `enum` group also counts the rank
+        rows its seed search fetched and those the plain lockstep fetches
+        for the same seeds."""
         ns = max_err + 1
         R2 = reads_c.shape[0]
         rep_rows = np.flatnonzero(
@@ -311,6 +314,9 @@ class BinMapper:
                                        self.device, traced)
                     rb_d = to_device(rb, self.device)
                     mask_d = to_device(mask, self.device)
+                    rank_rows = (torch.zeros(1, dtype=torch.int64,
+                                             device=self.device)
+                                 if traced and backend == "enum" else None)
                     if span.mark is not None:
                         span.mark("repetitive upload")
                     res = repetitive_map_step(
@@ -318,8 +324,11 @@ class BinMapper:
                         rate_ppm=rate_ppm,
                         max_errors=max_err, capacity=4, max_slen_rep=t_max,
                         budget=budget, indels=indels, backend=backend,
-                        sample_rate=self.sample_rate, marks=span.mark)
+                        sample_rate=self.sample_rate, marks=span.mark,
+                        rank_rows=rank_rows)
                     span.stop()
+                    if rank_rows is not None:   # ready once the fetch is
+                        rank_rows = rank_rows.to("cpu", non_blocking=True)
                     row, beg, end, dist, ok = _Fetch(torch.stack(
                         [*res[:4], res[4].to(torch.int32)])).result()
                 span.settle()
@@ -327,6 +336,12 @@ class BinMapper:
                     self.timers.add("repetitive groups", 1)
                     self.timers.add("repetitive group slots", self.REP_PAD)
                     self.timers.add("repetitive rows", self.REP_PAD - padn)
+                if rank_rows is not None:
+                    ns2_max = (max_err + budget + 1) // (budget + 1)
+                    self.timers.add("repetitive rank rows", int(rank_rows[0]))
+                    self.timers.add("repetitive lockstep rows",
+                                    lockstep_rank_rows(self.REP_PAD * ns2_max,
+                                                       t_max, budget, indels))
                 ok = ok.astype(bool)
                 matched = np.union1d(matched, row[ok])
                 m = build_matches(row, beg, end, dist, ok, n_reads=half)

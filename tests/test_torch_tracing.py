@@ -21,6 +21,7 @@ from collections import defaultdict
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from dream_yara_tpu.utils.timer import StageTimers as JaxStageTimers
 from dream_yara_tpu_torch.cli import build_filter, indexer, mapper_cli
@@ -95,7 +96,7 @@ def traced(db, small_shapes, monkeypatch):
     """A run with spans on, and what the spies saw: the routing mask, and
     for every repetitive group its chunk's reads, stratum and real rows."""
     index, batch = db
-    seen = {"routing": [], "groups": []}
+    seen = {"routing": [], "groups": [], "searches": []}
     classify, rep_step = tdm.classify_reads, tmapper.repetitive_map_step
 
     def classify_spy(*a, **kw):
@@ -107,6 +108,8 @@ def traced(db, small_shapes, monkeypatch):
         # the chunk's reads tensor is kept, so that its id names the chunk
         seen["groups"].append((reads, kw["budget"], int(rep_mask.sum()),
                                rep_rows.shape[0]))
+        seen["searches"].append((rep_rows.shape[0], kw["max_errors"],
+                                 kw["max_slen_rep"], kw["budget"], kw["indels"]))
         return rep_step(fm, reads, lengths, rep_rows, rep_mask, **kw)
 
     monkeypatch.setattr(tdm, "classify_reads", classify_spy)
@@ -158,6 +161,25 @@ def test_repetitive_group_counters(traced):
     assert t["repetitive rows"] <= t["repetitive group slots"]
     assert timers.counts["repetitive stratum 1 (enum)"] + timers.counts[
         "repetitive stratum 2 (enum)"] == t["repetitive groups"]
+
+
+def test_rank_row_counters(traced):
+    """Each enum group counts the plain lockstep's rank rows for its seeds
+    (2 x seeds x layouts x trips, from what the group was given); on the
+    CPU the plain edition runs, so the rows fetched are the same."""
+    from dream_yara_tpu_torch.ops.approx_search import _layout_tables
+
+    timers, _, seen = traced
+    want = 0
+    for K, max_err, m, budget, indels in seen["searches"]:
+        seeds = K * ((max_err + budget + 1) // (budget + 1))
+        want += 2 * seeds * len(_layout_tables(m, budget, indels)[0]) * (
+            m + int(indels))
+    t = timers.totals
+    assert want > 0
+    assert t["repetitive lockstep rows"] == want
+    assert t["repetitive rank rows"] == want
+    assert timers.counts["repetitive rank rows"] == t["repetitive groups"]
 
 
 class _Minimal:
@@ -266,6 +288,73 @@ def test_device_span_phases_and_total(monkeypatch):
     assert timermod.device_span(timers, "x", torch.device("cuda"), False) \
         is timermod.NO_SPAN
     assert timermod.NO_SPAN.mark is None
+
+
+class _OpCount(TorchDispatchMode):
+    """Counts the tensor operations run on this thread while it is on."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+class _CountingSpan:
+    """A device span that logs, at each mark and at its stop, how many
+    tensor operations its thread has run since it started."""
+
+    def __init__(self, name, spans):
+        self.name, self.log = name, []
+        spans.append(self)
+        self._ops = _OpCount()
+        self._ops.__enter__()
+
+    def mark(self, phase):
+        self.log.append((phase, self._ops.n))
+
+    def stop(self):
+        self.log.append(("stop", self._ops.n))
+        self._ops.__exit__(None, None, None)
+
+    def settle(self):
+        pass
+
+
+def test_no_work_is_queued_after_a_span_s_last_phase(db, small_shapes,
+                                                     monkeypatch):
+    """A map step's and a repetitive group's phases cover their span: every
+    phase queues work, and no operation runs between the last phase's mark
+    and the span's end. (On a card the span's end can still follow its
+    last mark by the host's time between the two records, where the card
+    has caught up with the host; that gap holds no work.)"""
+    index, batch = db
+    spans = []
+
+    def counting_span(timers, name, device, on):
+        return _CountingSpan(name, spans) if on else timermod.NO_SPAN
+
+    monkeypatch.setattr(tmapper, "device_span", counting_span)
+    tdm.dream_map_sam(index, batch, OPTS, timers=StageTimers(spans=True))
+    phases = {"map step": ["map upload", "map seed search", "map locate",
+                           "map verify"],
+              "repetitive stratum": ["repetitive upload",
+                                     "repetitive seed search",
+                                     "repetitive locate", "repetitive verify"]}
+    seen = defaultdict(int)
+    for span in spans:
+        kind = next((k for k in phases if span.name.startswith(k)), None)
+        if kind is None:
+            assert all(p == "stop" for p, _ in span.log), span.name
+            continue
+        seen[kind] += 1
+        assert [p for p, _ in span.log] == phases[kind] + ["stop"], span.log
+        counts = [0] + [n for _, n in span.log]
+        assert all(a < b for a, b in zip(counts[:-2], counts[1:-1])), span.log
+        assert counts[-1] == counts[-2], (span.name, span.log)
+    assert seen["map step"] > 1 and seen["repetitive stratum"] > 1
 
 
 def test_report_sets_counters_and_device_times_apart():
