@@ -12,6 +12,9 @@ so the pipeline never drains inside it. It opens at the yield of the last
 warm-up batch's SAM and closes at the first yield `seconds` later;
 `reads_per_s` counts the reads of every batch yielded in between over
 that time (a pair is two reads). SAM stays in memory.
+
+The host probe (`host_probe.py`) is timed twice, outside set-up and the
+window: once the program's state is freed, and once the check is done.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import torch
 from dream_yara_tpu_torch.io.readstore import ReadBatch
 
 from . import spec as specmod
-from . import check, trace
+from . import check, host_probe, trace
 
 
 class Feeder:
@@ -155,6 +158,7 @@ def run(cell: specmod.Cell, seed: int, seconds: float, traced: bool,
     del path, stream
     if cuda:
         torch.cuda.empty_cache()
+    probe_s = [host_probe.probe()]
     # the sample is drawn from the pool batches the window produced
     done = sorted(last_sam)
     t1 = time.perf_counter()
@@ -168,4 +172,5 @@ def run(cell: specmod.Cell, seed: int, seconds: float, traced: bool,
     log(f"[check] reference and comparison in {time.perf_counter() - t1:.1f} s; "
         f"{rec['checks']['sampled']} reads sampled, {rec['checks']['capped']} "
         f"capped (held to their best distance alone)")
+    rec["host_probe_s"] = probe_s + [host_probe.probe()]
     return rec

@@ -145,6 +145,8 @@ def main(argv=None) -> int:
     log(f"[card] {card_line()}")
     log(f"[cell] {a.workload} seed {a.seed} window {a.seconds} s trace {a.trace}")
     rec = cellmod.run(cell, a.seed, a.seconds, bool(a.trace), device, T_START, log)
+    after_window, after_check = rec["host_probe_s"]
+    log(f"[host] probe after window {after_window} s, after check {after_check} s")
     bad = forbidden_modules()
     if bad:
         log(f"port_bench: JAX or the JAX package was loaded: {bad}")

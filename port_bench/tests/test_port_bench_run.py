@@ -32,6 +32,16 @@ def _rec(traced):
     timers = {"device wait+fetch": 1.0, "ibf classify": 2.0,
               "repetitive re-seed (device)": 3.0, "mesh collect (host)": 1.0,
               "sam write (host)": 1.0}
+    if traced:
+        # the spans and counters that a traced run keeps
+        timers.update({"device-timed reads": 4 * 10**5, "map step (device time)": 5.0,
+                       "map chunks": 40, "spilled chunks": 40,
+                       "repetitive stratum 1 (device time)": 1.0,
+                       "repetitive stratum 2 (device time)": 0.5,
+                       "repetitive seed search (device time)": 0.4,
+                       "repetitive rows": 600, "repetitive group slots": 1024,
+                       "repetitive rank rows": 20, "repetitive lockstep rows": 100,
+                       "classified reads": 4 * 10**5, "routed read-bins": 5 * 10**5})
     return {"reads": 10**6, "window_s": 30.0, "setup_s": 50.0, "peak_bytes": 2**32,
             "checks": checks, "timers": timers, "trace": trace if traced else {}}
 
